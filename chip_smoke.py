@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's inference path once on one CUDA card.
+"""Drive the PyTorch port's inference path and training step on one CUDA
+card.
 
     python3 chip_smoke.py
 
@@ -7,22 +8,34 @@ Run from the root of a checkout on a machine with a CUDA card (it exits
 non-zero without one, and without the checkout beside it).  Phases:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
-2. build: nvcc compiles the flash-attention kernel into .build/;
-3. kernel: the kernel against its plain PyTorch version on the card, at the
-   main-path shape and at ragged shapes, bf16 and fp32, with a fully masked
-   row; CUDA-event times of both;
+2. build: one nvcc per kernel source, all at once, into .build/;
+3. attention kernels against their plain PyTorch versions on the card, at
+   the inference and training shapes and at ragged shapes, bf16 and fp32,
+   with a fully masked row: the forward and its lse, the backward's dq, dk,
+   dv and dbias; CUDA-event times of each kernel, its plain version and
+   scaled_dot_product_attention (timed as a yardstick only);
 4. small input: the tiny config in fp32 on the card against the same model
-   on the CPU (plain versions), same seeded parameters and input;
-5. main path: the 3DMatch config in bf16 at bucket 20480 with seeded random
-   parameters, on 4 pairs of synthetic room scans (19k points each, meter
-   scale, on a 2.5 cm grid, made here with numpy): register() once, then the batched forward,
-   timed, with per-stage times, a torch.profiler pass (device busy share,
-   top kernels; the trace goes to .build/forward_trace.json), checks of the
-   outputs, of the kernel's launch count, of the pyramid's bitwise
-   repeatability, and of the kernel path against a forward whose attention
-   calls the plain version.
+   on the CPU (plain versions), same seeded parameters and input: the
+   forward, and the gradients of one training step leaf by leaf;
+5. inference path: the 3DMatch config in bf16 at bucket 20480 with seeded
+   random parameters, on 4 pairs of synthetic room scans (19k points each,
+   meter scale, on a 2.5 cm grid, made here with numpy): register() once,
+   then the batched forward, timed, with per-stage times, a torch.profiler
+   pass (device busy share, top kernels; the trace goes to
+   .build/forward_trace.json), checks of the outputs, of the kernel's launch
+   count, of the pyramid's bitwise repeatability, and of the kernel path
+   against a forward whose attention calls the plain version;
+6. training path: the shipped 3DMatch config (fp32) on 2 pairs of those
+   scans with GT poses and overlap labels, collated at the bucket the
+   config picks (24576): the segment-sum kernel against its plain version
+   and index_add_ on the step's level-0 table; the first step's gradients
+   on the kernel path against the plain attention and gather transpose;
+   2 warm-up and 20 timed steps (ms/step, pairs/s, peak memory, launch
+   counts, finite losses, a falling loss); a NaN batch that must skip its
+   update; per-stage times; a torch.profiler pass (trace in
+   .build/train_trace.json).
 
-It imports torch, numpy and regtr_tpu_torch, nothing of JAX.
+It imports torch, numpy, scipy and regtr_tpu_torch, nothing of JAX.
 
 Every phase prints what it found.  The second-to-last line is the kernels'
 JSON summary and the last line {"ok": true, "device": {...}}; a failed
@@ -40,15 +53,27 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-N0 = 20480            # bucket of the main path (bench.py's)
+N0 = 20480            # bucket of the inference path (bench.py's)
 N_PAIRS = 4
 N_POINTS = 19000      # points per synthetic scan
 VOXEL = 0.025         # the scans' grid (conf/3dmatch.yaml first_subsampling_dl)
 TIMED_ITERS = 10
 REPEATS = 5
 PROFILED_ITERS = 3
+TRAIN_WARMUP = 2
+TRAIN_STEPS = 20
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # tests/test_pallas_attention.py
+# Backward: every gradient sums N products in another order than the plain
+# version; held to TOL_BWD times its largest magnitude (plus TOL_BWD
+# relative).  bf16: p and ds rounded to bf16 on both sides.
+TOL_BWD = {"bfloat16": 2e-2, "float32": 1e-4}
+TOL_LSE = 1e-4        # abs, fp32 logsumexp of the same scores
+TOL_SEGSUM = 1e-5     # x largest |sum|: fp32 sums of the same rows
+TOL_GRAD = 1e-3       # relative L2 per parameter, kernels vs plain (fp32)
 DEVICE = "cuda"
+# NVIDIA's data sheet, H100 SXM at 700 W:
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # fp32: no TF32
 
 
 def log(*args):
@@ -98,19 +123,38 @@ def phase_device():
         f"{torch.cuda.get_device_name(0)}")
 
 
+def kernel_libraries():
+    from regtr_tpu_torch.ops import attention, kpconv
+
+    return [attention.FWD_LIBRARY, attention.BWD_LIBRARY,
+            kpconv.SEGSUM_LIBRARY]
+
+
 def phase_build():
-    from regtr_tpu_torch.ops import attention
+    from regtr_tpu_torch.ops import cuda_build
 
     log("== phase 2: build")
+    libs = kernel_libraries()
     t0 = time.perf_counter()
-    attention.load_library()
-    log(f"built/loaded {attention.library_path().name} in "
-        f"{time.perf_counter() - t0:.2f} s")
-    ptxas = attention.library_path().with_suffix(".log")
-    if ptxas.exists():
-        for line in ptxas.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log("  " + line.strip())
+    cuda_build.build_all(libs)
+    for lib in libs:
+        lib.load()
+    log(f"built/loaded {', '.join(lib.path().name for lib in libs)} in "
+        f"{time.perf_counter() - t0:.2f} s (one nvcc per source, at once)")
+    for lib in libs:
+        ptxas = lib.path().with_suffix(".log")
+        if ptxas.exists():
+            for line in ptxas.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    log("  " + line.strip())
+
+
+def bound(flops, nbytes, dtype):
+    """Least time the card could take (ms) and what bounds it."""
+    t_ops = flops / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
 
 
 def attention_inputs(bh, nq, nk, d, dtype, seed, device):
@@ -119,56 +163,164 @@ def attention_inputs(bh, nq, nk, d, dtype, seed, device):
     from regtr_tpu_torch.ops.attention import NEG_BIAS
 
     g = torch.Generator(device="cpu").manual_seed(seed)
-    q, k, v = (torch.randn(bh, n, d, generator=g) for n in (nq, nk, nk))
+    q, k, v, do = (torch.randn(bh, n, d, generator=g)
+                   for n in (nq, nk, nk, nq))
     mask = torch.rand(bh, nk, generator=g) > 0.2
     mask[:, :4] = True
     mask[0] = False                      # one slice with every key masked
     bias = torch.where(mask, 0.0, NEG_BIAS).float()
     return [x.to(device=device, dtype=dtype) for x in (q, k, v)] + [
-        bias.to(device)]
+        bias.to(device), do.to(device=device, dtype=dtype)]
 
 
-def phase_kernel():
+def _excess(got, ref, tol, scale=None):
+    """max over elements of |got - ref| - tol * (scale or |ref|): <= tol
+    passes (atol = rtol = tol, or atol = tol * scale)."""
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    if scale is None:
+        return float((err - tol * ref.abs()).max())
+    return float((err - tol * ref.abs()).max()) / max(scale, 1e-30)
+
+
+def phase_attention(train_n):
+    """K1 (with lse) and the backward kernels against the plain versions.
+
+    Returns the numbers of the kernels line: K1 at the inference shape in
+    bf16, the backward kernels at the training shape in fp32."""
+    import torch
+    import torch.nn.functional as F
+
+    from regtr_tpu_torch.ops.attention import (
+        _fwd, attention_delta, flash_attn_bwd_dkv, flash_attn_bwd_dq,
+        flash_masked_attention, flash_masked_attention_bwd_reference,
+        flash_masked_attention_reference)
+
+    log("== phase 3: attention kernels vs plain versions")
+    infer_shape = (64, 1872, 1872, 32)   # 8 clouds x 8 heads, coarse level
+    train_shape = (32, train_n, train_n, 32)   # 4 clouds x 8 heads
+    result = {}
+    for shape in [infer_shape, train_shape, (8, 1000, 1313, 16),
+                  (5, 777, 2049, 64), (3, 65, 7, 32)]:
+        for name in ("bfloat16", "float32"):
+            dtype = getattr(torch, name)
+            bh, nq, nk, d = shape
+            q, k, v, bias, do = attention_inputs(*shape, dtype, 1, DEVICE)
+            scale = d ** -0.5
+            out = flash_masked_attention(q, k, v, bias, scale)
+            out2, lse = _fwd(q, k, v, bias, scale, True)
+            ref, ref_lse = flash_masked_attention_reference(
+                q, k, v, bias, scale, return_lse=True)
+            torch.cuda.synchronize()
+            err = float((out[1:].float() - ref[1:].float()).abs().max())
+            lse_err = float((lse - ref_lse).abs().max())
+            log(f"  {shape} {name}: forward max abs err {err:.3e} "
+                f"(tol {TOL[name]:g} abs + rel), lse {lse_err:.3e} (tol "
+                f"{TOL_LSE:g} abs + 1e-6 rel)")
+            check(out.dtype == dtype and out.shape == q.shape,
+                  f"{shape} {name} dtype/shape")
+            check(torch.equal(out, out2), f"{shape} {name} the lse run "
+                  "gives the same output")
+            check(bool(torch.isfinite(out[0].float()).all())
+                  and bool(torch.isfinite(lse).all()),
+                  f"{shape} {name} fully masked row and lse finite")
+            check(_excess(out[1:], ref[1:], TOL[name]) <= TOL[name],
+                  f"{shape} {name} forward within tolerance")
+            check(float(((lse - ref_lse).abs() - 1e-6 * ref_lse.abs())
+                        .max()) <= TOL_LSE, f"{shape} {name} lse within "
+                  "tolerance")
+            # backward: kernels vs plain, on the kernel forward's out, lse
+            delta = attention_delta(out, do)
+            dk, dv, db = flash_attn_bwd_dkv(q, k, v, bias, do, lse, delta,
+                                            scale, True)
+            dq = flash_attn_bwd_dq(q, k, v, bias, do, lse, delta, scale)
+            refs = flash_masked_attention_bwd_reference(q, k, v, bias, out,
+                                                        lse, do, scale)
+            torch.cuda.synchronize()
+            errs = {}
+            for gname, got, r in zip(("dq", "dk", "dv", "dbias"),
+                                     (dq, dk, dv, db), refs):
+                check(got.dtype == r.dtype and got.shape == r.shape
+                      and bool(torch.isfinite(got.float()).all()),
+                      f"{shape} {name} {gname} dtype/shape/finite")
+                errs[gname] = float((got.float() - r.float()).abs().max())
+                scale_r = float(r.float().abs().max())
+                check(_excess(got, r, TOL_BWD[name], scale_r) <= TOL_BWD[name],
+                      f"{shape} {name} {gname} within tolerance (max abs "
+                      f"err {errs[gname]:.3e}, largest |grad| "
+                      f"{scale_r:.3e})")
+            if (shape, name) not in ((infer_shape, "bfloat16"),
+                                     (train_shape, "float32"),
+                                     (train_shape, "bfloat16")):
+                continue
+            result[(shape, name)] = _time_attention(
+                shape, name, q, k, v, bias, do, out, lse, delta, scale, errs,
+                err, F)
+    return result
+
+
+def _time_attention(shape, name, q, k, v, bias, do, out, lse, delta, scale,
+                    errs, fwd_err, F):
     import torch
 
     from regtr_tpu_torch.ops.attention import (
-        flash_masked_attention, flash_masked_attention_reference)
+        _fwd, flash_attn_bwd_dkv, flash_attn_bwd_dq,
+        flash_masked_attention_bwd_reference,
+        flash_masked_attention_reference)
 
-    log("== phase 3: kernel vs plain version")
-    main_shape = (64, 1872, 1872, 32)  # 8 clouds x 8 heads, coarse level
-    result = {}
-    for shape in [main_shape, (8, 1000, 1313, 16), (5, 777, 2049, 64),
-                  (3, 65, 7, 32)]:
-        for name in ("bfloat16", "float32"):
-            dtype = getattr(torch, name)
-            q, k, v, bias = attention_inputs(*shape, dtype, 1, DEVICE)
-            scale = shape[3] ** -0.5
-            out = flash_masked_attention(q, k, v, bias, scale)
-            ref = flash_masked_attention_reference(q, k, v, bias, scale)
-            torch.cuda.synchronize()
-            err = float((out[1:].float() - ref[1:].float()).abs().max())
-            # |out - ref| <= tol + tol * |ref| (atol = rtol = tol)
-            excess = float(((out[1:].float() - ref[1:].float()).abs()
-                            - TOL[name] * ref[1:].float().abs()).max())
-            log(f"  {shape} {name}: max abs err {err:.3e} "
-                f"(tol {TOL[name]:g} abs + rel)")
-            check(out.dtype == dtype and out.shape == q.shape,
-                  f"{shape} {name} dtype/shape")
-            check(bool(torch.isfinite(out[0].float()).all()),
-                  f"{shape} {name} fully masked row finite")
-            check(excess <= TOL[name], f"{shape} {name} within tolerance")
-            if shape == main_shape:
-                ms = cuda_ms(lambda: flash_masked_attention(q, k, v, bias,
-                                                            scale))
-                plain_ms = cuda_ms(lambda: flash_masked_attention_reference(
-                    q, k, v, bias, scale))
-                flops = 4 * shape[0] * shape[1] * shape[2] * shape[3]
-                log(f"  {shape} {name}: kernel {ms:.4f} ms "
-                    f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f}"
-                    f" ms (median of 30, CUDA events)")
-                result[name] = {"max_abs_err": err, "ms": ms,
-                                "plain_ms": plain_ms}
-    return result
+    bh, nq, nk, d = shape
+    width = 2 if name == "bfloat16" else 4
+    fwd_ms = cuda_ms(lambda: _fwd(q, k, v, bias, scale, False))
+    plain_fwd_ms = cuda_ms(lambda: flash_masked_attention_reference(
+        q, k, v, bias, scale))
+    dkv_ms = cuda_ms(lambda: flash_attn_bwd_dkv(q, k, v, bias, do, lse,
+                                                delta, scale, True))
+    dq_ms = cuda_ms(lambda: flash_attn_bwd_dq(q, k, v, bias, do, lse, delta,
+                                              scale))
+    plain_bwd_ms = cuda_ms(lambda: flash_masked_attention_bwd_reference(
+        q, k, v, bias, out, lse, do, scale))
+    # the library yardstick: one SDPA call with the additive bias as its
+    # mask, forward, and forward + backward (dq, dk, dv)
+    mask4 = bias[:, None, :]
+    qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    lib_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask4, scale=scale))
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask4,
+                                           scale=scale)
+        torch.autograd.grad(o, (qs, ks, vs), do)
+
+    lib_bwd_ms = cuda_ms(sdpa_fwd_bwd) - lib_fwd_ms
+    n2d = bh * nq * nk * d
+    rows = bh * (nq + nk)
+    # the forward reads q, k, v, bias and writes out
+    fwd_bound = bound(4 * n2d, 2 * rows * d * width + bh * nk * 4, name)
+    # dkv reads q, k, v, dO, bias, lse, delta; writes dk, dv, dbias
+    dkv_bound = bound(8 * n2d, (2 * rows * d + 2 * bh * nk * d) * width
+                      + (2 * bh * nk + 2 * bh * nq) * 4, name)
+    dq_bound = bound(6 * n2d, (2 * rows * d + bh * nq * d) * width
+                     + (bh * nk + 2 * bh * nq) * 4, name)
+    log(f"  {shape} {name}: forward kernel {fwd_ms:.4f} ms (bound "
+        f"{fwd_bound[0]:.4f}, {fwd_bound[1]}), plain {plain_fwd_ms:.4f}, "
+        f"SDPA {lib_fwd_ms:.4f}; backward dkv {dkv_ms:.4f} (bound "
+        f"{dkv_bound[0]:.4f}, {dkv_bound[1]}) + dq {dq_ms:.4f} (bound "
+        f"{dq_bound[0]:.4f}, {dq_bound[1]}), plain {plain_bwd_ms:.4f}, SDPA "
+        f"backward {lib_bwd_ms:.4f} ms (medians of 30, CUDA events); "
+        f"{4 * n2d / fwd_ms / 1e9:.2f} / {8 * n2d / dkv_ms / 1e9:.2f} / "
+        f"{6 * n2d / dq_ms / 1e9:.2f} TFLOP/s")
+    return {
+        "fwd": {"max_abs_err": fwd_err, "ms": fwd_ms,
+                "plain_ms": plain_fwd_ms, "bound_ms": fwd_bound[0],
+                "bound_by": fwd_bound[1], "library_ms": lib_fwd_ms},
+        "dkv": {"max_abs_err": max(errs["dk"], errs["dv"], errs["dbias"]),
+                "ms": dkv_ms, "plain_ms": plain_bwd_ms,
+                "bound_ms": dkv_bound[0], "bound_by": dkv_bound[1],
+                "library_ms": lib_bwd_ms},
+        "dq": {"max_abs_err": errs["dq"], "ms": dq_ms,
+               "plain_ms": plain_bwd_ms, "bound_ms": dq_bound[0],
+               "bound_by": dq_bound[1], "library_ms": lib_bwd_ms},
+    }
 
 
 def phase_small_input():
@@ -179,13 +331,14 @@ def phase_small_input():
     from regtr_tpu_torch.config import tiny_config
     from regtr_tpu_torch.models import create_model
 
-    log("== phase 4: tiny config, card vs CPU on one input")
+    log("== phase 4: tiny config, card vs CPU on one input (forward and "
+        "one training step)")
     data = np.load(ROOT / "tests" / "golden_tiny.npz")
     pts, mask = torch.from_numpy(data["points"]), torch.from_numpy(
         data["mask"])
     models = {dev: create_model(tiny_config(), 96, dev, seed=42)
               for dev in ("cpu", DEVICE)}
-    with torch.inference_mode():
+    with torch.no_grad():   # not inference mode: the step below saves them
         lv_cpu = models["cpu"].preprocess(pts, mask)
         lv_dev = models[DEVICE].preprocess(pts.to(DEVICE), mask.to(DEVICE))
     rows = differ = 0
@@ -224,6 +377,53 @@ def phase_small_input():
         # tests/test_golden.py's tolerances (fp32, another summation order)
         check(torch.allclose(b, a, rtol=1e-3, atol=2e-4),
               f"{key} card vs CPU (max abs err {err:.2e})")
+
+    # One training step's gradients: the kernels (attention forward with
+    # lse, its backward, the gather transpose) against the CPU's plain
+    # versions, on the same tables, parameters, pose and labels.
+    from regtr_tpu_torch.data.overlap import compute_overlap
+    from regtr_tpu_torch.ops import attention, kpconv
+
+    pts_np, mask_np = data["points"], data["mask"]
+    a = np.deg2rad(20.0)
+    rot = np.array([[np.cos(a), -np.sin(a), 0.0], [np.sin(a), np.cos(a), 0.0],
+                    [0.0, 0.0, 1.0]], np.float32)
+    pose = np.concatenate([rot, [[0.05], [-0.02], [0.01]]], 1)[None]
+    src_ov, tgt_ov, _ = compute_overlap(
+        pts_np[0][mask_np[0]] @ rot.T + pose[0, :, 3],
+        pts_np[1][mask_np[1]], 0.15)
+    ov = np.zeros(mask_np.shape, np.float32)
+    ov[0, mask_np[0]], ov[1, mask_np[1]] = src_ov, tgt_ov
+    grads = {}
+    counts = {}
+    for dev, levels in (("cpu", lv_cpu), (DEVICE, lv_moved)):
+        model = models[dev]
+        launches = (attention.flash_masked_attention.launches,
+                    attention.flash_attn_bwd_dkv.launches,
+                    attention.flash_attn_bwd_dq.launches,
+                    kpconv.sorted_padded_segment_sum.launches)
+        losses, _ = model.loss_levels(
+            levels, torch.from_numpy(pose.astype(np.float32)).to(dev),
+            torch.from_numpy(ov).to(dev))
+        gs = torch.autograd.grad(losses["total"], list(model.parameters()),
+                                 allow_unused=True)
+        grads[dev] = {n: (torch.zeros_like(p) if g is None else g).cpu()
+                      for (n, p), g in zip(model.named_parameters(), gs)}
+        counts[dev] = [x1 - x0 for x0, x1 in zip(launches, (
+            attention.flash_masked_attention.launches,
+            attention.flash_attn_bwd_dkv.launches,
+            attention.flash_attn_bwd_dq.launches,
+            kpconv.sorted_padded_segment_sum.launches))]
+    n_attn = 2 * tiny_config()["num_encoder_layers"]
+    n_seg = len(tiny_config()["architecture"]) - 1
+    check(counts["cpu"] == [0, 0, 0, 0]
+          and counts[DEVICE] == [n_attn, n_attn, n_attn, n_seg],
+          f"tiny step launches (fwd, dkv, dq, segsum): CPU {counts['cpu']}, "
+          f"card {counts[DEVICE]}")
+    worst = max((rel_l2(grads[DEVICE][n], g), n) for n, g in
+                grads["cpu"].items() if float(g.norm()) > 1e-6)
+    check(worst[0] < TOL_GRAD, f"tiny step gradients card vs CPU, leaf by "
+          f"leaf: worst rel L2 {worst[0]:.2e} ({worst[1]}, tol {TOL_GRAD})")
 
 
 def _rotation(rng, max_deg):
@@ -288,16 +488,18 @@ def make_room(rng, n_points):
     return np.concatenate(parts).astype(np.float32), (lx, ly)
 
 
-def synthetic_pairs(n_pairs, n_points, seed):
-    """Interleaved pairs of overlapping scans of synthetic rooms, each cloud
-    in its own random frame (rotation up to 50 degrees).
+def _scans(n_pairs, n_points, seed):
+    """Pairs of overlapping scans of synthetic rooms: a list of (cloud,
+    rotation, translation), source then target of each pair, each cloud
+    the room's points moved by its own random rigid transform (rotation up
+    to 50 degrees).
 
     Like a 3DMatch fragment, a scan is a contiguous patch at the density of
     a 2.5 cm voxel grid: the room is voxel-downsampled once, and a scan is
     the n_points points nearest to its center.
     """
     rng = np.random.RandomState(seed)
-    clouds = []
+    scans = []
     for _ in range(n_pairs):
         room, (lx, ly) = make_room(rng, 600000)
         _, first = np.unique(np.floor(room / VOXEL).astype(np.int64),
@@ -308,8 +510,16 @@ def synthetic_pairs(n_pairs, n_points, seed):
             dist = np.linalg.norm(room - c, axis=1)
             keep = np.argpartition(dist, n_points)[:n_points]
             rot = _rotation(rng, 50.0)
-            clouds.append((room[keep] @ rot.T
-                           + rng.randn(3) * 0.3).astype(np.float32))
+            trans = rng.randn(3) * 0.3
+            scans.append(((room[keep] @ rot.T + trans).astype(np.float32),
+                          rot, trans))
+    return scans
+
+
+def synthetic_pairs(n_pairs, n_points, seed):
+    """Interleaved pairs of synthetic scans padded to the bucket N0:
+    (points (2B, N0, 3), mask (2B, N0))."""
+    clouds = [c for c, _, _ in _scans(n_pairs, n_points, seed)]
     pts = np.zeros((len(clouds), N0, 3), np.float32)
     mask = np.zeros((len(clouds), N0), bool)
     for i, c in enumerate(clouds):
@@ -318,19 +528,39 @@ def synthetic_pairs(n_pairs, n_points, seed):
     return pts, mask
 
 
-def profile_forward(model, pts, mask, n=PROFILED_ITERS):
-    """torch.profiler over n back-to-back forwards: the device's busy share
-    (union of kernel intervals over the span from the first kernel's start
-    to the last one's end) and the kernels with the most device time."""
+def synthetic_samples(n_pairs, n_points, seed, cfg):
+    """The same pairs as training samples: src_xyz, tgt_xyz, the GT pose
+    src -> tgt (3, 4), and overlap labels at cfg['overlap_radius'] from the
+    port's compute_overlap (collate with data.collate.collate_pairs)."""
+    from regtr_tpu_torch.data.overlap import compute_overlap
+
+    scans = _scans(n_pairs, n_points, seed)
+    samples = []
+    for (src, rs, ts), (tgt, rt, tt) in zip(scans[::2], scans[1::2]):
+        rot = rt @ rs.T
+        pose = np.concatenate([rot, (tt - rot @ ts)[:, None]], 1)
+        src_ov, tgt_ov, _ = compute_overlap(src @ rot.T + pose[:, 3], tgt,
+                                            cfg["overlap_radius"])
+        samples.append({"src_xyz": src, "tgt_xyz": tgt,
+                        "pose": pose.astype(np.float32),
+                        "src_overlap": src_ov, "tgt_overlap": tgt_ov})
+    return samples
+
+
+def profile_device(run, n, what, trace_name):
+    """torch.profiler over n back-to-back calls of run(): the device's busy
+    share (union of kernel intervals over the span from the first kernel's
+    start to the last one's end) and the kernels with the most device
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with torch.inference_mode(), profile(activities=acts) as prof:
+    with profile(activities=acts) as prof:
         for _ in range(n):
-            model(pts, mask)
+            run()
         torch.cuda.synchronize()
-    trace = ROOT / ".build" / "forward_trace.json"
+    trace = ROOT / ".build" / trace_name
     trace.parent.mkdir(exist_ok=True)
     prof.export_chrome_trace(str(trace))
     kernels = [e for e in json.loads(trace.read_text())["traceEvents"]
@@ -342,15 +572,15 @@ def profile_forward(model, pts, mask, n=PROFILED_ITERS):
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
     total = end - spans[0][0]
-    log(f"profile of {n} forwards: device busy {busy / 1e3:.1f} of "
+    log(f"profile of {n} {what}s: device busy {busy / 1e3:.1f} of "
         f"{total / 1e3:.1f} ms ({100 * busy / total:.1f} %), kernels "
-        f"{busy / 1e3 / n:.1f} ms per forward")
+        f"{busy / 1e3 / n:.1f} ms per {what}")
     per_name = {}
     for e in kernels:
         name = e["name"].removeprefix("void ")[:100]
         per_name[name] = per_name.get(name, 0.0) + e["dur"]
     for name, us in sorted(per_name.items(), key=lambda kv: -kv[1])[:12]:
-        log(f"  {us / 1e3 / n:8.2f} ms/forward  {name}")
+        log(f"  {us / 1e3 / n:8.2f} ms/{what}  {name}")
 
 
 def phase_main_path():
@@ -363,7 +593,7 @@ def phase_main_path():
     from regtr_tpu_torch.ops.attention import (
         flash_masked_attention, flash_masked_attention_reference)
 
-    log("== phase 5: main path (3DMatch config, bf16, bucket 20480)")
+    log("== phase 5: inference path (3DMatch config, bf16, bucket 20480)")
     cfg = threedmatch_config(compute_dtype="bfloat16")
     t0 = time.perf_counter()
     model = create_model(cfg, N0, DEVICE, seed=0)
@@ -462,7 +692,9 @@ def phase_main_path():
     log("stages (median ms, host clock around synchronized stages): "
         + ", ".join(f"{k} {statistics.median(v) * 1e3:.2f}"
                     for k, v in stages.items()))
-    profile_forward(model, pts, mask)
+    with torch.inference_mode():
+        profile_device(lambda: model(pts, mask), PROFILED_ITERS, "forward",
+                       "forward_trace.json")
 
     # -- determinism of the pyramid
     with torch.inference_mode():
@@ -502,6 +734,238 @@ def phase_main_path():
     return launches, forwards
 
 
+def _launch_counts():
+    from regtr_tpu_torch.ops import attention, kpconv
+
+    return {"flash_attn_fwd": attention.flash_masked_attention.launches,
+            "flash_attn_bwd_dkv": attention.flash_attn_bwd_dkv.launches,
+            "flash_attn_bwd_dq": attention.flash_attn_bwd_dq.launches,
+            "segsum": kpconv.sorted_padded_segment_sum.launches}
+
+
+def _zero_launch_counts():
+    from regtr_tpu_torch.ops import attention, kpconv
+
+    attention.flash_masked_attention.launches = 0
+    attention.flash_attn_bwd_dkv.launches = 0
+    attention.flash_attn_bwd_dq.launches = 0
+    kpconv.sorted_padded_segment_sum.launches = 0
+
+
+def check_segsum(table, n_pad):
+    """The segment-sum kernel on the gather transpose of a real neighbor
+    table (B, Nq, K) into clouds of n_pad rows (the pad row last): against
+    the plain version and index_add_, twice for bitwise repeatability, in
+    fp32 at the backbone's level-0 width (32) and at ragged widths, and in
+    bf16.  Returns the kernels line's numbers at the fp32, width-32 shape."""
+    import torch
+
+    from regtr_tpu_torch.ops.kpconv import (padded_segment_sum_reference,
+                                            sorted_padded_segment_sum)
+
+    b = table.shape[0]
+    offs = torch.arange(b, device=table.device)[:, None] * n_pad
+    ids = (table.reshape(b, -1) + offs).reshape(-1)
+    num = b * n_pad
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    result = None
+    for c, dtype in ((32, torch.float32), (33, torch.float32),
+                     (192, torch.float32), (32, torch.bfloat16)):
+        g = torch.randn(ids.shape[0], c, generator=gen).to(DEVICE, dtype)
+        got = sorted_padded_segment_sum(g, ids, num, n_pad)
+        again = sorted_padded_segment_sum(g, ids, num, n_pad)
+        ref = padded_segment_sum_reference(g, ids, num, n_pad)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        scale = float(ref.abs().max())
+        log(f"  segsum rows {ids.shape[0]} x {c} {dtype}: max abs err "
+            f"{err:.3e} (largest |sum| {scale:.2f}, tol {TOL_SEGSUM:g} x "
+            f"that)")
+        check(got.dtype == torch.float32 and got.shape == (num, c),
+              "segsum dtype/shape")
+        check(err <= TOL_SEGSUM * scale, f"segsum {c} {dtype} within "
+              "tolerance")
+        check(torch.equal(got, again), f"segsum {c} {dtype} bitwise "
+              "repeatable")
+        if result is not None:
+            continue
+        ms = cuda_ms(lambda: sorted_padded_segment_sum(g, ids, num, n_pad))
+        sort_ms = cuda_ms(lambda: torch.sort(ids, stable=True))
+        plain_ms = cuda_ms(lambda: padded_segment_sum_reference(g, ids, num,
+                                                                n_pad))
+        lib_ms = cuda_ms(lambda: torch.zeros(
+            (num, c), device=DEVICE).index_add_(0, ids, g))
+        rows = ids.shape[0]
+        # reads g and the ids, writes the sums; one add per element
+        bnd = bound(rows * c, rows * c * 4 + rows * 8 + num * c * 4,
+                    "float32")
+        log(f"  segsum {rows} x {c} fp32: kernel {ms:.4f} ms (of which the "
+            f"id sort {sort_ms:.4f}; bound {bnd[0]:.4f}, {bnd[1]}), plain "
+            f"{plain_ms:.4f}, index_add_ {lib_ms:.4f} ms (medians of 30, "
+            f"CUDA events)")
+        result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                  "bound_ms": bnd[0], "bound_by": bnd[1],
+                  "library_ms": lib_ms, "rows": rows, "width": c}
+    return result
+
+
+def phase_training():
+    import torch
+
+    from regtr_tpu_torch.config import threedmatch_config
+    from regtr_tpu_torch.data.collate import collate_pairs
+    from regtr_tpu_torch.models import create_model
+    from regtr_tpu_torch.nn import transformer
+    from regtr_tpu_torch.ops import attention, kpconv
+    from regtr_tpu_torch.train import steps
+    from regtr_tpu_torch.train.optim import Optimizer
+
+    cfg = threedmatch_config()
+    n_pairs = int(cfg["train_batch_size"])
+    log(f"== phase 6: training path (3DMatch config as shipped: "
+        f"{cfg['compute_dtype']}, {n_pairs} pairs, {cfg['optimizer']} lr "
+        f"{cfg['base_lr']} wd {cfg['weight_decay']}, {cfg['scheduler']} "
+        f"schedule, clip {cfg['grad_clip']}, dropout {cfg['dropout']})")
+    samples = synthetic_samples(n_pairs, N_POINTS, 0, cfg)
+    batch_np, _ = collate_pairs(samples, cfg["buckets"])
+    n0 = batch_np["points"].shape[1]
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in batch_np.items()}
+    t0 = time.perf_counter()
+    model = create_model(cfg, n0, DEVICE, seed=0)
+    log(f"bucket {n0} (pick_bucket of {N_POINTS} over {cfg['buckets']}), "
+        f"pyramid caps {model.spec.capacities}, K {model.spec.neighbor_ks}; "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f} M "
+        f"parameters, built in {time.perf_counter() - t0:.1f} s; overlap "
+        f"labels at radius {cfg['overlap_radius']}: "
+        f"{float(batch_np['overlap0'][batch_np['mask']].mean()):.3f} of the "
+        f"points")
+    opt = Optimizer(model.parameters(), cfg)
+    step = steps.make_train_step(model, opt, cfg)
+    n_attn = 2 * cfg["num_encoder_layers"]     # self + cross per layer
+    # one gather with a gradient per block after the first (the first
+    # block's input is the constant feature, which has none)
+    n_segsum = len(cfg["architecture"]) - 1
+
+    # -- K4 on the step's own level-0 neighbor table
+    with torch.no_grad():
+        levels = model.preprocess(batch["points"], batch["mask"])
+    segsum = check_segsum(levels[0].neighbors, n0 + 1)
+
+    # -- first-step gradients: kernels vs the plain attention and gather
+    # transpose on the card, same parameters and batch
+    grads = {}
+    kernel_attention = transformer.flash_masked_attention
+    kernel_gather = kpconv.batched_row_gather_padded
+    for route in ("kernels", "plain"):
+        if route == "plain":
+            transformer.flash_masked_attention = \
+                attention.flash_masked_attention_plain
+            kpconv.batched_row_gather_padded = \
+                kpconv.batched_row_gather_padded_plain
+        try:
+            before = _launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            losses, _ = steps.forward_loss(model, batch)
+            g, _ = steps.backward(opt, losses["total"])
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t
+            grads[route] = g
+            used = {k: v - before[k] for k, v in _launch_counts().items()}
+        finally:
+            transformer.flash_masked_attention = kernel_attention
+            kpconv.batched_row_gather_padded = kernel_gather
+        log(f"first step, {route}: loss {losses['total'].item():.5f}, "
+            f"forward + backward {elapsed * 1e3:.1f} ms, launches {used}")
+        want = ({"flash_attn_fwd": n_attn, "flash_attn_bwd_dkv": n_attn,
+                 "flash_attn_bwd_dq": n_attn, "segsum": n_segsum}
+                if route == "kernels" else dict.fromkeys(used, 0))
+        check(used == want, f"{route} route launched {want}")
+    names = [n for n, _ in model.named_parameters()]
+    errs = sorted(((rel_l2(a, b), n) for n, a, b in
+                   zip(names, grads["kernels"], grads["plain"])
+                   if float(b.norm()) > 1e-6), reverse=True)
+    check(errs[0][0] < TOL_GRAD,
+          f"first-step gradients, kernels vs plain, leaf by leaf over "
+          f"{len(errs)} parameters: worst rel L2 {errs[0][0]:.2e} "
+          f"({errs[0][1]}; tol {TOL_GRAD})")
+    del grads
+
+    # -- warm-up, then the timed window with the counts zeroed just before
+    # and read just after
+    history = [step(batch) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        history.append(step(batch))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"flash_attn_fwd": n_attn * TRAIN_STEPS,
+            "flash_attn_bwd_dkv": n_attn * TRAIN_STEPS,
+            "flash_attn_bwd_dq": n_attn * TRAIN_STEPS,
+            "segsum": n_segsum * TRAIN_STEPS}
+    check(launches == want, f"launches in {TRAIN_STEPS} steps: {launches} "
+          f"({n_attn} attention forwards and backwards and {n_segsum} "
+          f"segment sums per step)")
+    totals = [float(m["total"]) for m in history]
+    norms = [float(m["grad_norm"]) for m in history]
+    log(f"train: {elapsed / TRAIN_STEPS * 1e3:.1f} ms per step, "
+        f"{n_pairs * TRAIN_STEPS / elapsed:.3f} pairs/s ({TRAIN_STEPS} "
+        f"steps after {TRAIN_WARMUP} warm-up, host clock), peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    log("loss per step: " + " ".join(f"{x:.4f}" for x in totals))
+    log("grad_norm per step: " + " ".join(f"{x:.3f}" for x in norms))
+    log("last step: " + ", ".join(
+        f"{k} {float(v) if v.numel() == 1 else v.tolist()}"
+        if torch.is_tensor(v) else f"{k} {v}"
+        for k, v in history[-1].items()))
+    check(all(np.isfinite(totals)) and all(np.isfinite(norms)),
+          "every step's loss and grad_norm finite")
+    check(all(m["update_skipped"] == 0.0 for m in history),
+          "no step skipped its update")
+    check(totals[-1] < totals[0], f"loss fell over {len(totals)} steps: "
+          f"{totals[0]:.4f} -> {totals[-1]:.4f}")
+
+    # -- a NaN point: the update is skipped, the parameters stay bitwise
+    bad = dict(batch, points=batch["points"].clone())
+    bad["points"][0, 5, 2] = float("nan")
+    kept = [p.detach().clone() for p in model.parameters()]
+    count = opt.count
+    m = step(bad)
+    check(m["update_skipped"] == 1.0 and opt.count == count
+          and all(torch.equal(a, p) for a, p in zip(kept,
+                                                    model.parameters())),
+          f"NaN batch: loss {float(m['total'])}, update skipped, every "
+          "parameter bitwise unchanged")
+
+    # -- per-stage times (synchronized after each stage)
+    stages = {"forward_loss": [], "backward": [], "optimizer": []}
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses, _ = steps.forward_loss(model, batch)
+        torch.cuda.synchronize()
+        stages["forward_loss"].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        g, gn = steps.backward(opt, losses["total"])
+        torch.cuda.synchronize()
+        stages["backward"].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        steps.apply(opt, g, gn, losses["total"])
+        torch.cuda.synchronize()
+        stages["optimizer"].append(time.perf_counter() - t)
+    log("stages (median ms of 5, host clock around synchronized stages): "
+        + ", ".join(f"{k} {statistics.median(v) * 1e3:.2f}"
+                    for k, v in stages.items()))
+    profile_device(lambda: step(batch), PROFILED_ITERS, "step",
+                   "train_trace.json")
+    return launches, segsum
+
+
 def main():
     if not (ROOT / "regtr_tpu_torch").is_dir():
         raise SystemExit("FAILED: run chip_smoke.py from a checkout of the "
@@ -511,23 +975,49 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("FAILED: torch.cuda.is_available() is false")
+    from regtr_tpu_torch.config import threedmatch_config
+    from regtr_tpu_torch.data.collate import pick_bucket
+    from regtr_tpu_torch.ops.pyramid import make_pyramid_spec
+
+    cfg = threedmatch_config()
+    train_n = make_pyramid_spec(cfg, pick_bucket(
+        N_POINTS, cfg["buckets"])).capacities[-1]
     phase_device()
     phase_build()
-    kern = phase_kernel()
+    attn = phase_attention(train_n)
     phase_small_input()
-    launches, forwards = phase_main_path()
-    main_bf16 = kern["bfloat16"]
-    log(json.dumps({"kernels": [{
-        "name": "flash_attn_fwd",
-        "route": "cuda",
-        "source": "regtr_tpu_torch/csrc/flash_attn_fwd.cu",
-        "replaces": "regtr_tpu/ops/pallas/attention.py:49",
-        "launches": launches,
-        "forwards": forwards,
-        "max_abs_err": main_bf16["max_abs_err"],
-        "ms": main_bf16["ms"],
-        "plain_ms": main_bf16["plain_ms"],
-    }]}))
+    infer_launches, forwards = phase_main_path()
+    train_launches, segsum = phase_training()
+    k1 = attn[((64, 1872, 1872, 32), "bfloat16")]
+    bwd = attn[((32, train_n, train_n, 32), "float32")]
+    segsum_shape = [segsum.pop("rows"), segsum.pop("width")]
+    src = "regtr_tpu_torch/csrc/"
+    log(json.dumps({"kernels": [
+        dict(name="flash_attn_fwd", route="cuda",
+             source=src + "flash_attn_fwd.cu",
+             replaces="regtr_tpu/ops/pallas/attention.py:49",
+             launches=infer_launches, forwards=forwards,
+             train_launches=train_launches["flash_attn_fwd"],
+             steps=TRAIN_STEPS, shape=[64, 1872, 1872, 32], dtype="bfloat16",
+             **k1["fwd"]),
+        dict(name="flash_attn_bwd_dkv", route="cuda",
+             source=src + "flash_attn_bwd.cu",
+             replaces="regtr_tpu/ops/pallas/attention.py:194",
+             launches=train_launches["flash_attn_bwd_dkv"],
+             steps=TRAIN_STEPS, shape=[32, train_n, train_n, 32],
+             dtype="float32", **bwd["dkv"]),
+        dict(name="flash_attn_bwd_dq", route="cuda",
+             source=src + "flash_attn_bwd.cu",
+             replaces="regtr_tpu/ops/pallas/attention.py:232",
+             launches=train_launches["flash_attn_bwd_dq"],
+             steps=TRAIN_STEPS, shape=[32, train_n, train_n, 32],
+             dtype="float32", **bwd["dq"]),
+        dict(name="segsum", route="cuda", source=src + "segsum.cu",
+             replaces="regtr_tpu/ops/pallas/segsum.py:60",
+             launches=train_launches["segsum"], steps=TRAIN_STEPS,
+             shape=segsum_shape,
+             dtype="float32", **segsum),
+    ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

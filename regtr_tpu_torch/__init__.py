@@ -1,7 +1,9 @@
-"""regtr_tpu_torch: the PyTorch + CUDA port of regtr_tpu (inference forward).
+"""regtr_tpu_torch: the PyTorch + CUDA port of regtr_tpu (the inference
+forward and the training step).
 
-Imports torch, never jax, flax or yaml.  It shares the JAX package's
-numpy-only host modules (kernel points, SE(3) in numpy, the data helpers).
+Imports torch, numpy and scipy, never jax, flax, optax or yaml, and nothing
+of regtr_tpu: the host-side helpers it needs (kernel points, collate,
+overlap labels) are its own copies.
 
 Public convenience surface:
     register(src_xyz, tgt_xyz, params, cfg, device="cuda") -> dict with pose
@@ -34,9 +36,8 @@ def register(src_xyz, tgt_xyz, params=None, cfg=None, bucket=None,
     import numpy as np
     import torch
 
-    from regtr_tpu.data.collate import pick_bucket
-
     from .config import modelnet_config, threedmatch_config
+    from .data.collate import pick_bucket
     from .models import create_model
 
     device = torch.device(device)

@@ -5,8 +5,10 @@
 //   an additive per-key bias (0 for valid keys, -1e9 for masked ones).
 //
 // Replaces the TPU kernel regtr_tpu/ops/pallas/attention.py::_kernel (the
-// forward behind flash_masked_attention, without its lse output, which only
-// the backward needs).  Semantics kept exactly: fp32 scores, running max,
+// forward behind flash_masked_attention), with its optional lse output:
+// lse = m + log(l) per query row, fp32, written when the caller passes a
+// pointer (the training forward; the backward recomputes p from it).
+// Semantics kept exactly: fp32 scores, running max,
 // running sum and accumulator; the bias added per key; p rounded to the
 // operand type before the p*v product, as the TPU kernel does; a fully
 // masked row is the bias-weighted mean, not zeros.  Keys beyond Nk (the
@@ -46,8 +48,8 @@ __global__ void __launch_bounds__(kBlockQ)
                          const float* __restrict__ k,
                          const float* __restrict__ v,
                          const float* __restrict__ bias,
-                         float* __restrict__ out, int nq, int nk,
-                         float scale) {
+                         float* __restrict__ out, float* __restrict__ lse,
+                         int nq, int nk, float scale) {
   static_assert(D % 4 == 0, "head dim must be a multiple of 4");
   static_assert(kBlockK % kChunk == 0, "tile must hold whole chunks");
   __shared__ __align__(16) float ks[kBlockK * D];
@@ -131,6 +133,9 @@ __global__ void __launch_bounds__(kBlockQ)
     float* o = out + ((size_t)bh * nq + qi) * D;
 #pragma unroll
     for (int c = 0; c < D; ++c) o[c] = acc[c] * inv;
+    // l >= 1: the row max contributes exp(0).  A fully masked row has
+    // m ~ -1e9, and its lse rounds to m, as the TPU kernel's does.
+    if (lse) lse[(size_t)bh * nq + qi] = m + logf(fmaxf(l, 1e-30f));
   }
 }
 
@@ -166,7 +171,8 @@ __global__ void __launch_bounds__(kWarps * 32)
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
                           const float* __restrict__ bias,
-                          __nv_bfloat16* __restrict__ out, int nq, int nk,
+                          __nv_bfloat16* __restrict__ out,
+                          float* __restrict__ lse, int nq, int nk,
                           float scale) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   constexpr int kNb = kBlockK / 8;  // 8-key column blocks of the scores
@@ -302,6 +308,10 @@ __global__ void __launch_bounds__(kWarps * 32)
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
+  if (lse && t == 0) {  // one thread of the quad writes the row's lse
+    if (in0) lse[(size_t)bh * nq + row0] = m0 + logf(fmaxf(l0, 1e-30f));
+    if (in1) lse[(size_t)bh * nq + row0 + 8] = m1 + logf(fmaxf(l1, 1e-30f));
+  }
   const float inv0 = l0 == 0.f ? 0.f : 1.f / l0;
   const float inv1 = l1 == 0.f ? 0.f : 1.f / l1;
   __nv_bfloat16* o0 = out + ((size_t)bh * nq + row0) * D;
@@ -319,20 +329,20 @@ __global__ void __launch_bounds__(kWarps * 32)
 
 template <int D>
 void launch_d(const void* q, const void* k, const void* v, const float* bias,
-              void* out, int bh, int nq, int nk, int is_bf16, float scale,
-              cudaStream_t stream) {
+              void* out, float* lse, int bh, int nq, int nk, int is_bf16,
+              float scale, cudaStream_t stream) {
   const dim3 grid((nq + kBlockQ - 1) / kBlockQ, bh);
   if (is_bf16) {
     flash_fwd_bf16_kernel<D><<<grid, kWarps * 32, 0, stream>>>(
         static_cast<const __nv_bfloat16*>(q),
         static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), bias,
-        static_cast<__nv_bfloat16*>(out), nq, nk, scale);
+        static_cast<__nv_bfloat16*>(out), lse, nq, nk, scale);
   } else {
     flash_fwd_f32_kernel<D><<<grid, kBlockQ, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), bias, static_cast<float*>(out), nq, nk,
-        scale);
+        static_cast<const float*>(v), bias, static_cast<float*>(out), lse,
+        nq, nk, scale);
   }
 }
 
@@ -341,23 +351,26 @@ void launch_d(const void* q, const void* k, const void* v, const float* bias,
 extern "C" {
 
 // Launches on `stream`; returns cudaGetLastError() after the launch.
-// is_bf16: 1 for bf16 q/k/v/out, 0 for fp32.  Shapes, contiguity and
-// alignment are checked by the caller (regtr_tpu_torch/ops/attention.py).
+// is_bf16: 1 for bf16 q/k/v/out, 0 for fp32.  lse: (BH, Nq) fp32, or null
+// when the caller needs no backward.  Shapes, contiguity and alignment are
+// checked by the caller (regtr_tpu_torch/ops/attention.py).
 int regtr_flash_attn_fwd(const void* q, const void* k, const void* v,
-                         const void* bias, void* out, int bh, int nq, int nk,
-                         int d, int is_bf16, float scale, void* stream) {
+                         const void* bias, void* out, void* lse, int bh,
+                         int nq, int nk, int d, int is_bf16, float scale,
+                         void* stream) {
   if (bh <= 0 || nq <= 0 || nk <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* b = static_cast<const float*>(bias);
+  float* l = static_cast<float*>(lse);
   switch (d) {
     case 16:
-      launch_d<16>(q, k, v, b, out, bh, nq, nk, is_bf16, scale, s);
+      launch_d<16>(q, k, v, b, out, l, bh, nq, nk, is_bf16, scale, s);
       break;
     case 32:
-      launch_d<32>(q, k, v, b, out, bh, nq, nk, is_bf16, scale, s);
+      launch_d<32>(q, k, v, b, out, l, bh, nq, nk, is_bf16, scale, s);
       break;
     case 64:
-      launch_d<64>(q, k, v, b, out, bh, nq, nk, is_bf16, scale, s);
+      launch_d<64>(q, k, v, b, out, l, bh, nq, nk, is_bf16, scale, s);
       break;
     default:
       return (int)cudaErrorInvalidValue;

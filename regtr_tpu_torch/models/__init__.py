@@ -14,6 +14,7 @@ import math
 import torch
 import torch.nn as nn
 
+from ..losses.feature import InfoNCELoss
 from ..nn.blocks import KPConvLayer, NormBlock
 from ..ops.pyramid import make_pyramid_spec
 from .regtr import RegTR
@@ -24,7 +25,8 @@ _MODELS = {"regtr.RegTR": RegTR, "RegTR": RegTR}
 def init_parameters(model: nn.Module, generator: torch.Generator):
     """Seeded init with flax's defaults: Dense kernels lecun-normal
     (truncated at 2 std), biases zero, LayerNorm scale one, KPConv weights
-    U(+-1/sqrt(P*Cin)).  Modules are visited in registration order."""
+    U(+-1/sqrt(P*Cin)), the InfoNCE W normal with stddev 0.1.  Modules are
+    visited in registration order."""
     def fill(param, draw):
         with torch.no_grad():
             param.copy_(draw(torch.empty(param.shape, dtype=param.dtype)))
@@ -47,6 +49,9 @@ def init_parameters(model: nn.Module, generator: torch.Generator):
                 t, -bound, bound, generator=generator))
         elif isinstance(m, NormBlock) and not m.use_bn:
             fill(m.bias, torch.zeros_like)
+        elif isinstance(m, InfoNCELoss):
+            fill(m.W, lambda t: nn.init.normal_(t, 0.0, 0.1,
+                                                generator=generator))
 
 
 def create_model(cfg, n0_capacity: int, device, seed: int = 0) -> RegTR:

@@ -1,5 +1,5 @@
-"""RegTR inference forward (counterpart of RegTR.__call__ in
-regtr_tpu/models/regtr.py).
+"""RegTR forward and training losses (counterpart of RegTR.__call__ and
+RegTR.compute_loss in regtr_tpu/models/regtr.py).
 
     points (2B, N0, 3), mask (2B, N0), pairs interleaved: slot 2i = source
     of pair i, slot 2i+1 = target.
@@ -8,7 +8,8 @@ The forward is four stages, each a method so a caller can time them:
 `preprocess` (the pyramid), `encode` (KPConv backbone, feature projection
 and positional embedding), `condition` (cross-attention transformer) and
 `head_and_pose` (correspondence head and the weighted Kabsch solve over all
-layers and pairs).
+layers and pairs).  `compute_loss` adds the training losses on top of the
+forward.
 """
 from __future__ import annotations
 
@@ -18,13 +19,16 @@ import torch
 import torch.nn as nn
 
 from ..core.pairs import split_pairs
-from ..core.se3 import compute_rigid_transform
+from ..core.se3 import compute_rigid_transform, se3_inv, se3_transform
+from ..losses.corr import corr_loss
+from ..losses.feature import InfoNCELoss
+from ..losses.overlap import overlap_loss
 from ..nn.backbone import KPFEncoder, encoder_out_dim
 from ..nn.blocks import compute_dtype
 from ..nn.heads import CorrespondenceRegressor
 from ..nn.pos_embed import PositionEmbeddingCoordsSine
 from ..nn.transformer import TransformerCrossEncoder
-from ..ops.pyramid import PyramidSpec, build_pyramid
+from ..ops.pyramid import PyramidSpec, build_pyramid, compute_overlap_pyramid
 
 
 class RegTR(nn.Module):
@@ -56,10 +60,20 @@ class RegTR(nn.Module):
             compute_dtype=compute_dtype(cfg),
         )
         self.head = CorrespondenceRegressor(d_embed)
+        # The InfoNCE criteria hold trained parameters (W), so they are
+        # submodules although only the loss uses them.  Registered last, so
+        # the seeded init draws the forward's parameters as before.
+        if cfg.get("feature_loss_type", "infonce") == "infonce":
+            self.feature_criterion = InfoNCELoss(d_embed, cfg["r_p"],
+                                                 cfg["r_n"])
+            self.feature_criterion_un = InfoNCELoss(d_embed, cfg["r_p"],
+                                                    cfg["r_n"])
 
     def preprocess(self, points, mask):
-        return build_pyramid(points, mask, self.spec,
-                             sort_input=bool(self.cfg.get("sort_input", True)))
+        with torch.no_grad():   # tables and coordinates: data, not trained
+            return build_pyramid(points, mask, self.spec,
+                                 sort_input=bool(self.cfg.get("sort_input",
+                                                              True)))
 
     def encode(self, levels):
         """-> (feats_un (2B, Nc, D), positional embedding (2B, Nc, D))."""
@@ -92,12 +106,16 @@ class RegTR(nn.Module):
         bb = torch.cat([src_corr, tgt_xyz[None].expand(num_pred, -1, -1, -1)],
                        dim=2)
         w = torch.cat([src_ov, tgt_ov], dim=2)               # (L, B, 2Nc)
-        pose = compute_rigid_transform(a, bb, w)             # (L, B, 3, 4)
+        with torch.no_grad():   # no loss reads the predicted pose
+            pose = compute_rigid_transform(a, bb, w)         # (L, B, 3, 4)
         return corr, overlap_logits[..., 0], pose
 
     def forward(self, points, mask) -> Dict[str, Any]:
         """points (2B, N0, 3) fp32; mask (2B, N0) bool."""
-        levels = self.preprocess(points, mask)
+        return self.forward_levels(self.preprocess(points, mask))
+
+    def forward_levels(self, levels) -> Dict[str, Any]:
+        """The forward after the pyramid, on `preprocess`'s levels."""
         coarse = levels[-1]
         feats_un, pe = self.encode(levels)
         feats_cond = self.condition(feats_un, pe, coarse.mask)
@@ -113,3 +131,65 @@ class RegTR(nn.Module):
             "overlap_logits": overlap_logits,  # (L, 2B, Nc)
             "pose": pose,                      # (L, B, 3, 4)
         }
+
+    def compute_loss(self, points, mask, pose_gt, overlap0):
+        """Forward + all training losses -> (losses incl. 'total', outputs).
+
+        pose_gt (B, 3, 4) src->tgt; overlap0 (2B, N0) GT overlap labels at
+        the input level, in the input's order.
+        """
+        return self.loss_levels(self.preprocess(points, mask), pose_gt,
+                                overlap0)
+
+    def loss_levels(self, levels, pose_gt, overlap0):
+        """`compute_loss` on `preprocess`'s levels: BCE overlap loss,
+        InfoNCE on conditioned and unconditioned features, and the
+        bidirectional overlap-weighted correspondence loss."""
+        cfg = self.cfg
+        if float(cfg.get("dropout", 0.0)) != 0.0:
+            raise NotImplementedError("training with dropout > 0 is not "
+                                      "ported")
+        if cfg.get("feature_loss_type", "infonce") != "infonce":
+            raise NotImplementedError("only the InfoNCE feature loss is "
+                                      "ported")
+        out = self.forward_levels(levels)
+        num_layers = cfg["num_encoder_layers"]
+        losses: Dict[str, torch.Tensor] = {}
+        weights: Dict[str, float] = {}
+
+        if levels[0].perm is not None:
+            # Level 0 was spatially sorted: realign the per-point labels.
+            overlap0 = overlap0.gather(1, levels[0].perm)
+        ov_c = compute_overlap_pyramid(overlap0, levels)[-1]   # (2B, Nc)
+        src_ov_gt, tgt_ov_gt = split_pairs(ov_c)
+        kp_mask = out["kp_mask"]
+        src_kp, tgt_kp = split_pairs(out["kp"])
+        src_mask, tgt_mask = split_pairs(kp_mask)
+
+        for i in cfg.get("overlap_loss_on", [num_layers - 1]):
+            losses[f"overlap_{i}"] = overlap_loss(
+                out["overlap_logits"][i], ov_c, kp_mask)
+            weights[f"overlap_{i}"] = cfg.get("wt_overlap", 1.0)
+
+        src_kp_gt_warped = se3_transform(pose_gt, src_kp)
+        for i in cfg.get("feature_loss_on", [num_layers - 1]):
+            f_src, f_tgt = split_pairs(out["feats_cond"][i])
+            losses[f"feature_{i}"] = self.feature_criterion(
+                f_src, f_tgt, src_kp_gt_warped, tgt_kp, src_mask, tgt_mask)
+            weights[f"feature_{i}"] = cfg.get("wt_feature", 0.1)
+        fu_src, fu_tgt = split_pairs(out["feats_un"])
+        losses["feature_un"] = self.feature_criterion_un(
+            fu_src, fu_tgt, src_kp_gt_warped, tgt_kp, src_mask, tgt_mask)
+        weights["feature_un"] = cfg.get("wt_feature_un", 0.0)
+
+        pose_gt_inv = se3_inv(pose_gt)
+        metric = cfg.get("corr_metric", "mae")
+        for i in cfg.get("corr_loss_on", [num_layers - 1]):
+            corr_src, corr_tgt = split_pairs(out["corr"][i])
+            losses[f"corr_{i}"] = (
+                corr_loss(src_kp, corr_src, pose_gt, src_ov_gt, metric)
+                + corr_loss(tgt_kp, corr_tgt, pose_gt_inv, tgt_ov_gt, metric))
+            weights[f"corr_{i}"] = cfg.get("wt_corr", 1.0)
+
+        losses["total"] = sum(losses[k] * weights[k] for k in weights)
+        return losses, out

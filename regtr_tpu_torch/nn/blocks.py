@@ -10,10 +10,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from regtr_tpu.utils.kernel_points import load_kernel_points
-
 from ..core.masking import masked_instance_norm
 from ..ops.kpconv import kpconv_apply, kpconv_fused_gather, max_pool
+from ..utils.kernel_points import load_kernel_points
 
 LEAKY_SLOPE = 0.1
 

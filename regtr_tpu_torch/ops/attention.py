@@ -1,106 +1,100 @@
-"""Masked flash attention: the CUDA kernel and its plain PyTorch version.
+"""Masked flash attention, forward and backward: the CUDA kernels and their
+plain PyTorch versions.
 
-Counterpart of regtr_tpu/ops/pallas/attention.py (forward only).
-`flash_masked_attention` keeps the JAX package's layout: q (BH, Nq, d),
-k and v (BH, Nk, d), bias (BH, Nk) fp32, additive per key (0 for valid
-keys, NEG_BIAS for masked ones).  On a CUDA tensor it launches the kernel in
-csrc/flash_attn_fwd.cu, or raises; only a CPU tensor goes to the plain
-version.
+Counterpart of regtr_tpu/ops/pallas/attention.py.  `flash_masked_attention`
+keeps the JAX package's layout: q (BH, Nq, d), k and v (BH, Nk, d), bias
+(BH, Nk) fp32, additive per key (0 for valid keys, NEG_BIAS for masked
+ones).  It is differentiable (`torch.autograd.Function`, the counterpart of
+the JAX custom_vjp):
 
-The kernel is compiled with nvcc at first use into `.build/` at the root of
-the checkout (a plain C interface, loaded with ctypes), named by a hash of
-its source and flags, so a changed source is rebuilt.
+* forward: csrc/flash_attn_fwd.cu; when the call is recorded for a backward
+  it also writes lse = m + log(l) per query row, fp32 (BH, Nq);
+* backward: delta = rowsum(dO * O) in PyTorch, as the JAX package computes
+  it outside its kernels, then csrc/flash_attn_bwd.cu's dkv and dq kernels
+  give dq, dk, dv and (when bias needs one) dbias.
+
+On a CUDA tensor each step launches its kernel, or raises; only a CPU
+tensor takes the plain versions (`flash_masked_attention_reference` and
+`flash_masked_attention_bwd_reference`).  Each launch adds one to its
+wrapper's count: `flash_masked_attention.launches` (forward),
+`flash_attn_bwd_dkv.launches` and `flash_attn_bwd_dq.launches`.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import torch
 
-NEG_BIAS = -1e9
+from .cuda_build import CudaLibrary
 
-_PKG_DIR = Path(__file__).resolve().parent.parent
-SOURCE = _PKG_DIR / "csrc" / "flash_attn_fwd.cu"
-BUILD_DIR = _PKG_DIR.parent / ".build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+NEG_BIAS = -1e9
 HEAD_DIMS = (16, 32, 64)
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       f"{SOURCE.name}")
+def _declare_fwd(lib):
+    lib.regtr_flash_attn_fwd.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+        + [ctypes.c_float, ctypes.c_void_p])
+    lib.regtr_flash_attn_fwd.restype = ctypes.c_int
 
 
-def library_path() -> Path:
-    """Where the built kernel library lives (named by source + flags)."""
-    tag = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"flash_attn_fwd_{tag}.so"
+def _declare_bwd(lib):
+    lib.regtr_flash_attn_bwd_dkv.argtypes = (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+        + [ctypes.c_float, ctypes.c_void_p])
+    lib.regtr_flash_attn_bwd_dkv.restype = ctypes.c_int
+    lib.regtr_flash_attn_bwd_dq.argtypes = (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+        + [ctypes.c_float, ctypes.c_void_p])
+    lib.regtr_flash_attn_bwd_dq.restype = ctypes.c_int
 
 
-def build_library() -> Path:
-    """Compile the kernel if its library is missing; raise if nvcc fails.
-
-    The compiler's output (ptxas register and spill counts) goes to a
-    `.log` file beside the library.
-    """
-    so = library_path()
-    if so.exists():
-        return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-            capture_output=True, text=True, check=False)
-        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}) on "
-                               f"{SOURCE}:\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return so
+FWD_LIBRARY = CudaLibrary("flash_attn_fwd.cu", _declare_fwd)
+BWD_LIBRARY = CudaLibrary("flash_attn_bwd.cu", _declare_bwd)
 
 
-@functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_library()))
-    fn = lib.regtr_flash_attn_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    lib.regtr_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.regtr_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+# ---------------------------------------------------------------- plain ---
 
-
-def flash_masked_attention_reference(q, k, v, bias, sm_scale: float):
+def flash_masked_attention_reference(q, k, v, bias, sm_scale: float,
+                                     return_lse: bool = False):
     """Plain version: fp32 softmax(q k^T * scale + bias), p rounded to v's
     dtype, fp32 p*v product, result in q's dtype (the counterpart of the JAX
-    package's `_xla_reference`)."""
+    package's `_xla_reference`).  With return_lse, also the fp32 per-row
+    logsumexp of the scores, (BH, Nq)."""
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * sm_scale
     s = s + bias[:, None, :].float()
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bqk,bkd->bqd", p.to(v.dtype).float(), v.float())
-    return o.to(q.dtype)
+    o = o.to(q.dtype)
+    return (o, torch.logsumexp(s, dim=-1)) if return_lse else o
 
+
+def attention_delta(o, do):
+    """delta = rowsum(dO * O) in fp32, (BH, Nq)."""
+    return (do.float() * o.float()).sum(dim=-1)
+
+
+def flash_masked_attention_bwd_reference(q, k, v, bias, o, lse, do,
+                                         sm_scale: float):
+    """Plain backward: the recompute of the JAX package's `_recompute_p_ds`
+    with its roundings (p cast to dO's dtype before P^T dO, ds to q's dtype
+    before dS^T Q and dS K; every product accumulated in fp32).
+
+    Returns (dq, dk, dv in the operands' dtype, dbias fp32 (BH, Nk)).
+    """
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * sm_scale
+    s = s + bias[:, None, :].float()
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bqd,bkd->bqk", do.float(), v.float())
+    ds = p * (dp - attention_delta(o, do)[..., None])
+    dv = torch.einsum("bqk,bqd->bkd", p.to(do.dtype).float(), do.float())
+    dsq = ds.to(q.dtype).float()
+    dk = torch.einsum("bqk,bqd->bkd", dsq, q.float()) * sm_scale
+    dq = torch.einsum("bqk,bkd->bqd", dsq, k.float()) * sm_scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), ds.sum(dim=1)
+
+
+# --------------------------------------------------------------- kernels ---
 
 def _check(q, k, v, bias):
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3 or bias.dim() != 2:
@@ -122,42 +116,175 @@ def _check(q, k, v, bias):
         raise ValueError("q, k and v must share one dtype")
     if bias.dtype != torch.float32:
         raise ValueError(f"bias must be fp32, got {bias.dtype}")
-    for name, t in (("q", q), ("k", k), ("v", v), ("bias", bias)):
-        if t.device != q.device:
-            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+    _check_tensors(q, q=q, k=k, v=v, bias=bias)
+
+
+def _check_tensors(ref, **tensors):
+    for name, t in tensors.items():
+        if t.device != ref.device:
+            raise ValueError(f"{name} on {t.device}, expected {ref.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 4:
-            # the bf16 kernel moves pairs of values as 32-bit words
+            # the bf16 kernels move pairs of values as 32-bit words
             raise ValueError(f"{name} must be 4-byte aligned")
 
 
-def flash_masked_attention(q, k, v, bias, sm_scale: float):
-    """softmax(q @ k^T * sm_scale + bias) @ v -> (BH, Nq, d) in q.dtype.
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
 
-    CUDA tensors go through the hand-written kernel (and each launch adds
-    one to `flash_masked_attention.launches`); CPU tensors through
-    `flash_masked_attention_reference`.
-    """
-    if q.device.type == "cpu":
-        return flash_masked_attention_reference(q, k, v, bias, sm_scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash attention for device {q.device}")
+
+def _kernel_fwd(q, k, v, bias, sm_scale, want_lse):
     _check(q, k, v, bias)
-    lib = load_library()
+    lib = FWD_LIBRARY.load()
     bh, nq, d = q.shape
     out = torch.empty_like(q)
+    lse = (torch.empty((bh, nq), dtype=torch.float32, device=q.device)
+           if want_lse else None)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.regtr_flash_attn_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), bh, nq, k.shape[1], d,
-            int(q.dtype == torch.bfloat16), float(sm_scale), stream)
-    if err != 0:
-        raise RuntimeError("flash attention launch failed: "
-                           + lib.regtr_cuda_error_string(err).decode())
+            out.data_ptr(), None if lse is None else lse.data_ptr(), bh, nq,
+            k.shape[1], d, int(q.dtype == torch.bfloat16), float(sm_scale),
+            _stream(q))
+    FWD_LIBRARY.check(err, "flash attention forward")
     flash_masked_attention.launches += 1
-    return out
+    return out, lse
+
+
+def _check_bwd(q, k, v, bias, do, lse, delta):
+    _check(q, k, v, bias)
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"dO {tuple(do.shape)} {do.dtype} does not match "
+                         f"q {tuple(q.shape)} {q.dtype}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != q.shape[:2] or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be fp32 {tuple(q.shape[:2])}")
+    _check_tensors(q, do=do, lse=lse, delta=delta)
+
+
+def flash_attn_bwd_dkv(q, k, v, bias, do, lse, delta, sm_scale: float,
+                       want_dbias: bool):
+    """The dkv kernel on CUDA tensors: (dk, dv, dbias fp32 or None)."""
+    _check_bwd(q, k, v, bias, do, lse, delta)
+    bh, nq, d = q.shape
+    nk = k.shape[1]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dbias = (torch.empty((bh, nk), dtype=torch.float32, device=q.device)
+             if want_dbias else None)
+    with torch.cuda.device(q.device):
+        err = BWD_LIBRARY.load().regtr_flash_attn_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), None if dbias is None else dbias.data_ptr(), bh,
+            nq, nk, d, int(q.dtype == torch.bfloat16), float(sm_scale),
+            _stream(q))
+    BWD_LIBRARY.check(err, "flash attention backward (dk, dv)")
+    flash_attn_bwd_dkv.launches += 1
+    return dk, dv, dbias
+
+
+flash_attn_bwd_dkv.launches = 0
+
+
+def flash_attn_bwd_dq(q, k, v, bias, do, lse, delta, sm_scale: float):
+    """The dq kernel on CUDA tensors: dq."""
+    _check_bwd(q, k, v, bias, do, lse, delta)
+    bh, nq, d = q.shape
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = BWD_LIBRARY.load().regtr_flash_attn_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            bh, nq, k.shape[1], d, int(q.dtype == torch.bfloat16),
+            float(sm_scale), _stream(q))
+    BWD_LIBRARY.check(err, "flash attention backward (dq)")
+    flash_attn_bwd_dq.launches += 1
+    return dq
+
+
+flash_attn_bwd_dq.launches = 0
+
+
+# -------------------------------------------------------------- autograd ---
+
+def _fwd(q, k, v, bias, sm_scale, want_lse):
+    """Kernel for CUDA tensors, plain version for CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_masked_attention_reference(q, k, v, bias, sm_scale,
+                                                return_lse=True)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash attention for device {q.device}")
+    return _kernel_fwd(q, k, v, bias, sm_scale, want_lse)
+
+
+def _bwd(q, k, v, bias, o, lse, do, sm_scale, want_dbias):
+    if q.device.type == "cpu":
+        return flash_masked_attention_bwd_reference(q, k, v, bias, o, lse,
+                                                    do, sm_scale)
+    do = do.contiguous()
+    delta = attention_delta(o, do)
+    dk, dv, dbias = flash_attn_bwd_dkv(q, k, v, bias, do, lse, delta,
+                                       sm_scale, want_dbias)
+    dq = flash_attn_bwd_dq(q, k, v, bias, do, lse, delta, sm_scale)
+    return dq, dk, dv, dbias
+
+
+def _plain_fwd(q, k, v, bias, sm_scale, want_lse):
+    return flash_masked_attention_reference(q, k, v, bias, sm_scale,
+                                            return_lse=True)
+
+
+def _plain_bwd(q, k, v, bias, o, lse, do, sm_scale, want_dbias):
+    return flash_masked_attention_bwd_reference(q, k, v, bias, o, lse, do,
+                                                sm_scale)
+
+
+class _Attention(torch.autograd.Function):
+    """One recorded attention call: `fwd` gives (out, lse), `bwd` the four
+    gradients (the kernels, or the plain versions)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, sm_scale, fwd, bwd):
+        out, lse = fwd(q, k, v, bias, sm_scale, True)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        ctx.sm_scale, ctx.bwd = sm_scale, bwd
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias, o, lse = ctx.saved_tensors
+        dq, dk, dv, dbias = ctx.bwd(q, k, v, bias, o, lse, do, ctx.sm_scale,
+                                    ctx.needs_input_grad[3])
+        if not ctx.needs_input_grad[3]:
+            dbias = None
+        return dq, dk, dv, dbias, None, None, None
+
+
+def _needs_grad(*tensors):
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def flash_masked_attention(q, k, v, bias, sm_scale: float):
+    """softmax(q @ k^T * sm_scale + bias) @ v -> (BH, Nq, d) in q.dtype,
+    differentiable in q, k, v and bias.
+
+    CUDA tensors go through the hand-written kernels, CPU tensors through
+    the plain versions.  Without a gradient to record, the forward skips
+    the lse.
+    """
+    if _needs_grad(q, k, v, bias):
+        return _Attention.apply(q, k, v, bias, sm_scale, _fwd, _bwd)
+    return _fwd(q, k, v, bias, sm_scale, False)[0]
 
 
 flash_masked_attention.launches = 0
+
+
+def flash_masked_attention_plain(q, k, v, bias, sm_scale: float):
+    """The plain versions, forward and backward, on any device: what a
+    kernel run is compared with."""
+    if _needs_grad(q, k, v, bias):
+        return _Attention.apply(q, k, v, bias, sm_scale, _plain_fwd,
+                                _plain_bwd)
+    return flash_masked_attention_reference(q, k, v, bias, sm_scale)

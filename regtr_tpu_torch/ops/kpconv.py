@@ -1,5 +1,5 @@
-"""Kernel-point convolution, forward only (counterpart of
-regtr_tpu/ops/kpconv.py, rigid path).
+"""Kernel-point convolution (counterpart of regtr_tpu/ops/kpconv.py, rigid
+path), with the gather transpose of its feature gathers as a CUDA kernel.
 
 Math per query q with neighbors n (shadow neighbors point at an appended
 pad row with coordinates SHADOW_COORD and zero features):
@@ -18,14 +18,38 @@ fp32 product of the bf16-rounded operands.
 Row layout: the JAX version bit-splits fp32 coordinates into bf16 halves so
 features and coordinates ride in one gathered row, a TPU trick.  Here the
 coordinates (fp32) and the features (compute dtype) are two gathers with one
-flat index.
+flat index; only the feature gather carries a gradient.
+
+Gradients: every feature gather goes through `batched_row_gather_padded`,
+whose backward is the gather transpose: an fp32 segment sum of the
+cotangent rows by flat index, with the rows of each cloud's pad (shadow)
+row dropped.  On a CUDA tensor it launches csrc/segsum.cu
+(`sorted_padded_segment_sum`, counted in its `.launches`), on a CPU tensor
+it runs the plain version (`padded_segment_sum_reference`).  The kernel
+adds in a fixed order, so the backward is bitwise repeatable; `index_add_`
+on CUDA adds with atomics in a run-dependent order.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
 
+from .cuda_build import CudaLibrary
+
 SHADOW_COORD = 1e6
+
+
+def _declare_segsum(lib):
+    lib.regtr_segsum.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
+                                 ctypes.c_longlong, ctypes.c_int,
+                                 ctypes.c_void_p])
+    lib.regtr_segsum.restype = ctypes.c_int
+
+
+SEGSUM_LIBRARY = CudaLibrary("segsum.cu", _declare_segsum)
 
 
 def batched_row_gather(x: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
@@ -34,6 +58,97 @@ def batched_row_gather(x: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
     offs = torch.arange(b, device=x.device, dtype=inds.dtype)[:, None] * n
     flat = (inds + offs).reshape(-1)
     return x.reshape(b * n, c).index_select(0, flat).reshape(b, -1, c)
+
+
+def padded_segment_sum_reference(g: torch.Tensor, flat_ids: torch.Tensor,
+                                 num_segments: int, seg_stride: int
+                                 ) -> torch.Tensor:
+    """Plain version: fp32 sums of the rows of g (R, C) by flat_ids (R,)
+    into (num_segments, C), zero at pad-row segments
+    (id % seg_stride == seg_stride - 1)."""
+    out = torch.zeros((num_segments, g.shape[1]), dtype=torch.float32,
+                      device=g.device)
+    out.index_add_(0, flat_ids, g.float())
+    seg = torch.arange(num_segments, device=g.device)
+    return out * (seg % seg_stride != seg_stride - 1)[:, None]
+
+
+def sorted_padded_segment_sum(g: torch.Tensor, flat_ids: torch.Tensor,
+                              num_segments: int, seg_stride: int
+                              ) -> torch.Tensor:
+    """`padded_segment_sum_reference`'s function by the segsum kernel on
+    CUDA tensors: a stable sort of the ids and each segment's start in it
+    (PyTorch, as the JAX package sorts outside its kernel), then one warp
+    per segment adds its rows in sorted order.  CPU tensors take the plain
+    version.  Returns (num_segments, C) fp32."""
+    if g.device.type == "cpu":
+        return padded_segment_sum_reference(g, flat_ids, num_segments,
+                                            seg_stride)
+    if g.device.type != "cuda":
+        raise ValueError(f"no segment sum for device {g.device}")
+    if g.dim() != 2 or flat_ids.shape != g.shape[:1]:
+        raise ValueError(f"expected g (R, C) and ids (R,), got "
+                         f"{tuple(g.shape)} and {tuple(flat_ids.shape)}")
+    if g.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"cotangent dtype {g.dtype} not fp32/bf16")
+    if flat_ids.dtype != torch.int64 or flat_ids.device != g.device:
+        raise ValueError("ids must be int64 on the cotangent's device")
+    if num_segments < 1 or seg_stride < 1:
+        raise ValueError(f"num_segments {num_segments}, seg_stride "
+                         f"{seg_stride}")
+    g = g.contiguous()
+    sorted_ids, perm = torch.sort(flat_ids, stable=True)
+    starts = torch.searchsorted(
+        sorted_ids, torch.arange(num_segments + 1, device=g.device))
+    out = torch.empty((num_segments, g.shape[1]), dtype=torch.float32,
+                      device=g.device)
+    with torch.cuda.device(g.device):
+        err = SEGSUM_LIBRARY.load().regtr_segsum(
+            g.data_ptr(), perm.data_ptr(), starts.data_ptr(), out.data_ptr(),
+            num_segments, g.shape[1], seg_stride,
+            int(g.dtype == torch.bfloat16),
+            torch.cuda.current_stream(g.device).cuda_stream)
+    SEGSUM_LIBRARY.check(err, "segment sum")
+    sorted_padded_segment_sum.launches += 1
+    return out
+
+
+sorted_padded_segment_sum.launches = 0
+
+
+class _RowGatherPadded(torch.autograd.Function):
+    """Flat row gather whose backward is the padded segment sum `segsum`."""
+
+    @staticmethod
+    def forward(ctx, x, inds, segsum):
+        ctx.save_for_backward(inds)
+        ctx.shape, ctx.segsum = x.shape, segsum
+        return batched_row_gather(x, inds)
+
+    @staticmethod
+    def backward(ctx, g):
+        (inds,) = ctx.saved_tensors
+        b, n, c = ctx.shape
+        offs = torch.arange(b, device=inds.device, dtype=inds.dtype)[:, None]
+        flat = (inds + offs * n).reshape(-1)
+        dx = ctx.segsum(g.reshape(-1, c), flat, b * n, n)
+        return dx.to(g.dtype).reshape(b, n, c), None, None
+
+
+def batched_row_gather_padded(x: torch.Tensor, inds: torch.Tensor
+                              ) -> torch.Tensor:
+    """`batched_row_gather` for operands whose LAST row per cloud is a pad
+    (shadow) row whose gradient the caller discards.  The backward is the
+    fp32 gather transpose (the segsum kernel on CUDA tensors), the pad
+    rows' cotangents dropped, cast back to the cotangent's dtype."""
+    return _RowGatherPadded.apply(x, inds, sorted_padded_segment_sum)
+
+
+def batched_row_gather_padded_plain(x: torch.Tensor, inds: torch.Tensor
+                                    ) -> torch.Tensor:
+    """The same gather with the plain gather transpose on any device: what
+    a kernel run is compared with."""
+    return _RowGatherPadded.apply(x, inds, padded_segment_sum_reference)
 
 
 def _pad_row(x: torch.Tensor, value: float) -> torch.Tensor:
@@ -119,7 +234,7 @@ def kpconv_apply(infl, inv_n_valid, neighb_inds, x, weights,
 
     if compute_dtype is not None:
         x = x.to(compute_dtype)
-    neighb_x = batched_row_gather(
+    neighb_x = batched_row_gather_padded(
         _pad_row(x, 0.0), neighb_inds.reshape(b, nq * k)
     ).reshape(b, nq, k, cin)
     return _apply_from_gathered(infl, inv_n_valid, neighb_x, weights,
@@ -147,7 +262,7 @@ def kpconv_fused_gather(q_pts, s_pts, neighb_inds, x, x_extra, kernel_pts,
     if x_extra is not None:
         feats = torch.cat([feats, x_extra.to(gdtype)], dim=-1)
     flat_inds = neighb_inds.reshape(b, nq * k)
-    g = batched_row_gather(_pad_row(feats, 0.0), flat_inds)
+    g = batched_row_gather_padded(_pad_row(feats, 0.0), flat_inds)
     g = g.reshape(b, nq, k, feats.shape[-1])
     neighbors = batched_row_gather(
         _pad_row(s_pts.to(torch.float32), SHADOW_COORD), flat_inds
@@ -170,6 +285,6 @@ def max_pool(x, pool_inds, compute_dtype=None):
         x = x.to(compute_dtype)
     b, ns, c = x.shape
     _, nq, k = pool_inds.shape
-    gathered = batched_row_gather(_pad_row(x, 0.0),
-                                  pool_inds.reshape(b, nq * k))
+    gathered = batched_row_gather_padded(_pad_row(x, 0.0),
+                                         pool_inds.reshape(b, nq * k))
     return gathered.reshape(b, nq, k, c).amax(dim=2)

@@ -128,3 +128,26 @@ def build_pyramid(points: torch.Tensor, mask: torch.Tensor,
             cur_pts, cur_mask = nxt_pts, nxt_mask
         levels.append(level)
     return levels
+
+
+def compute_overlap_pyramid(overlap0: torch.Tensor,
+                            levels: List[PyramidLevel]) -> List[torch.Tensor]:
+    """Carry per-point groundtruth overlap labels down the pyramid.
+
+    At each stride, a next-level point's label is the mean of the labels of
+    its pool neighbors that are not shadows, clamped to [0, 1], and 0 at
+    masked points.  overlap0 (B, N0) -> one (B, N_l) tensor per level.
+    """
+    out = [overlap0]
+    cur = overlap0
+    for li in range(len(levels) - 1):
+        pools = levels[li].pools                       # (B, N_next, K)
+        valid = pools < levels[li].points.shape[1]
+        gathered = cur.gather(1, torch.where(valid, pools, 0).flatten(1))
+        gathered = torch.where(valid, gathered.view(pools.shape), 0.0)
+        denom = valid.sum(dim=-1).clamp_min(1).to(cur.dtype)
+        nxt = torch.clamp(gathered.sum(dim=-1) / denom, 0.0, 1.0)
+        nxt = torch.where(levels[li + 1].mask, nxt, 0.0)
+        out.append(nxt)
+        cur = nxt
+    return out

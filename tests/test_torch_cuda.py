@@ -64,3 +64,84 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):                   # non-contiguous k
         flash_masked_attention(q, q.transpose(1, 2).contiguous()
                                .transpose(1, 2), q, bias, 0.2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bh,nq,nk,d", [
+    (32, 2240, 2240, 32),    # the training step's coarse-level attention
+    (3, 200, 333, 16),
+    (2, 65, 130, 64),
+    (1, 1, 1, 32),
+])
+def test_backward_kernels_match_plain_version(cuda, bh, nq, nk, d, dtype):
+    """K1's lse, and the dkv and dq kernels, against the plain versions on
+    the kernel forward's own output and lse."""
+    from regtr_tpu_torch.ops.attention import (
+        _fwd, attention_delta, flash_attn_bwd_dkv, flash_attn_bwd_dq,
+        flash_masked_attention_bwd_reference)
+
+    g = torch.Generator().manual_seed(nq * nk)
+    tdt = getattr(torch, dtype)
+    q, k, v, do = (torch.randn(bh, n, d, generator=g).to(cuda, tdt)
+                   for n in (nq, nk, nk, nq))
+    mask = torch.rand(bh, nk, generator=g) > 0.2
+    mask[:, 0] = True
+    mask[0] = False                  # a slice with every key masked
+    bias = torch.where(mask, 0.0, NEG_BIAS).float().to(cuda)
+    out, lse = _fwd(q, k, v, bias, d ** -0.5, True)
+    _, ref_lse = flash_masked_attention_reference(q, k, v, bias, d ** -0.5,
+                                                  return_lse=True)
+    # the fp32 logsumexp of the same scores, in another order
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-6, atol=1e-4)
+    delta = attention_delta(out, do)
+    before = (flash_attn_bwd_dkv.launches, flash_attn_bwd_dq.launches)
+    dk, dv, db = flash_attn_bwd_dkv(q, k, v, bias, do, lse, delta,
+                                    d ** -0.5, True)
+    dq = flash_attn_bwd_dq(q, k, v, bias, do, lse, delta, d ** -0.5)
+    refs = flash_masked_attention_bwd_reference(q, k, v, bias, out, lse, do,
+                                                d ** -0.5)
+    torch.cuda.synchronize()
+    assert (flash_attn_bwd_dkv.launches, flash_attn_bwd_dq.launches) == (
+        before[0] + 1, before[1] + 1)
+    tol = {"float32": 1e-4, "bfloat16": 2e-2}[dtype]
+    for got, ref in zip((dq, dk, dv, db), refs):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        assert torch.isfinite(got.float()).all()
+        # Held to tol times the larger of the largest |gradient| and 1, the
+        # inputs' scale: where a softmax row has one key, dq, dk and dbias
+        # are 0 up to the cancellation in dO.v - delta (~1e-7 here).
+        scale = max(float(ref.float().abs().max()), 1.0)
+        torch.testing.assert_close(got.float(), ref.float(), rtol=tol,
+                                   atol=tol * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,dtype", [(32, "float32"), (33, "float32"),
+                                     (192, "float32"), (32, "bfloat16")])
+def test_segsum_kernel_matches_plain_and_repeats(cuda, c, dtype):
+    """The segment-sum kernel against the plain version on a neighbor-like
+    table (shadow rows and empty segments included), and bitwise equal
+    over two runs."""
+    from regtr_tpu_torch.ops.kpconv import (padded_segment_sum_reference,
+                                            sorted_padded_segment_sum)
+
+    g = torch.Generator().manual_seed(c)
+    b, n, k = 3, 4001, 24
+    table = torch.randint(0, n // 2, (b, n - 1, k), generator=g)
+    table[:, :, 15:] = n - 1                       # shadow neighbors
+    ids = (table.reshape(b, -1) + torch.arange(b)[:, None] * n).reshape(-1)
+    rows = torch.randn(ids.shape[0], c, generator=g)
+    rows, ids = rows.to(cuda, getattr(torch, dtype)), ids.to(cuda)
+    before = sorted_padded_segment_sum.launches
+    got = sorted_padded_segment_sum(rows, ids, b * n, n)
+    again = sorted_padded_segment_sum(rows, ids, b * n, n)
+    ref = padded_segment_sum_reference(rows, ids, b * n, n)
+    torch.cuda.synchronize()
+    assert sorted_padded_segment_sum.launches == before + 2
+    assert got.dtype == torch.float32 and got.shape == (b * n, c)
+    assert torch.equal(got, again)
+    # fp32 sums of the same rows in another order
+    torch.testing.assert_close(got, ref, rtol=1e-5,
+                               atol=1e-5 * float(ref.abs().max()))
+    assert not got.view(b, n, c)[:, n // 2:].any()   # pad and empty rows

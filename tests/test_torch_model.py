@@ -12,11 +12,10 @@ import torch
 
 from regtr_tpu.models import create_model as jax_create_model
 from regtr_tpu.models import init_model_params
-from regtr_tpu.ops.pyramid import make_pyramid_spec as jax_make_spec
 from regtr_tpu.train.checkpoints import _slash_key
 from regtr_tpu_torch import register
 from regtr_tpu_torch.config import threedmatch_config, tiny_config
-from regtr_tpu_torch.convert import LOSS_ONLY_LEAVES, state_dict_from_jax
+from regtr_tpu_torch.convert import state_dict_from_jax
 from regtr_tpu_torch.models import create_model
 from tests.test_torch_pyramid import assert_tables_match
 
@@ -29,13 +28,9 @@ def flat_params(params):
 
 
 def jax_init(jmodel, seed):
-    """Forward parameters of a JAX RegTR from PRNGKey(seed), initialized
-    through a small-capacity clone (parameter shapes do not depend on the
-    capacities)."""
-    clone = type(jmodel)(cfg=jmodel.cfg, spec=jax_make_spec(jmodel.cfg, 64))
-    pts = jnp.asarray(np.random.RandomState(0).rand(2, 64, 3), jnp.float32)
-    return jax.jit(clone.init)(jax.random.PRNGKey(seed), pts,
-                               jnp.ones((2, 64), bool))["params"]
+    """All parameters of a JAX RegTR from PRNGKey(seed), the InfoNCE
+    matrices of the loss included (the port's model carries them too)."""
+    return init_model_params(jmodel, jax.random.PRNGKey(seed))["params"]
 
 
 def port_model(cfg, n0, flat):
@@ -54,10 +49,10 @@ def test_tiny_golden():
     params = init_model_params(jmodel, jax.random.PRNGKey(42))["params"]
     flat = flat_params(params)
     model = port_model(cfg, 96, flat)
-    # The full JAX tree (loss path included): all but the two loss-only
-    # InfoNCE matrices map onto the port, one leaf per port tensor.
-    assert set(LOSS_ONLY_LEAVES) <= set(flat)
-    assert len(flat) - len(LOSS_ONLY_LEAVES) == len(model.state_dict())
+    # The full JAX tree, the two InfoNCE matrices of the loss included,
+    # maps onto the port, one leaf per port tensor.
+    assert {"feature_criterion/W", "feature_criterion_un/W"} <= set(flat)
+    assert len(flat) == len(model.state_dict())
     with torch.inference_mode():
         out = model(torch.from_numpy(data["points"]),
                     torch.from_numpy(data["mask"]))

@@ -14,7 +14,7 @@ from regtr_tpu.presets import modelnet_config as jax_modelnet_config
 from regtr_tpu.presets import threedmatch_config as jax_threedmatch_config
 from regtr_tpu.presets import tiny_config as jax_tiny_config
 from regtr_tpu_torch import config
-from regtr_tpu_torch.convert import LOSS_ONLY_LEAVES, state_dict_from_jax
+from regtr_tpu_torch.convert import state_dict_from_jax
 from regtr_tpu_torch.models import create_model
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -26,7 +26,10 @@ def test_port_imports_no_jax_flax_or_yaml():
         "import sys\n"
         "import regtr_tpu_torch, regtr_tpu_torch.models, "
         "regtr_tpu_torch.convert, regtr_tpu_torch.config, "
-        "regtr_tpu_torch.ops.attention\n"
+        "regtr_tpu_torch.ops.attention, regtr_tpu_torch.ops.kpconv, "
+        "regtr_tpu_torch.losses.feature, regtr_tpu_torch.losses.corr, "
+        "regtr_tpu_torch.losses.overlap, regtr_tpu_torch.data.collate, "
+        "regtr_tpu_torch.data.overlap, regtr_tpu_torch.train.steps\n"
         "from regtr_tpu_torch.config import threedmatch_config\n"
         "from regtr_tpu_torch.models import create_model\n"
         "create_model(threedmatch_config(first_feats_dim=16, d_embed=32, "
@@ -37,8 +40,22 @@ def test_port_imports_no_jax_flax_or_yaml():
         "3), cfg=tiny_config(), device='cpu')\n"
         "import chip_smoke\n"
         "chip_smoke.synthetic_pairs(1, 500, seed=0)\n"
+        "import torch\n"
+        "from regtr_tpu_torch.data.collate import collate_pairs\n"
+        "from regtr_tpu_torch.train.optim import Optimizer\n"
+        "from regtr_tpu_torch.train.steps import make_train_step\n"
+        "cfg = threedmatch_config(first_feats_dim=16, d_embed=32, nhead=2, "
+        "d_feedforward=32, num_encoder_layers=1, overlap_loss_on=[0], "
+        "feature_loss_on=[0], corr_loss_on=[0])\n"
+        "model = create_model(cfg, 512, 'cpu')\n"
+        "batch, _ = collate_pairs(chip_smoke.synthetic_samples(1, 500, 0, "
+        "cfg), [512])\n"
+        "m = make_train_step(model, Optimizer(model.parameters(), cfg), "
+        "cfg)({k: torch.from_numpy(v) for k, v in batch.items()})\n"
+        "assert m['update_skipped'] == 0.0, m\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'yaml', 'optax', 'orbax')]\n"
+        "('jax', 'jaxlib', 'flax', 'yaml', 'optax', 'orbax', 'regtr_tpu', "
+        "'tools')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -54,13 +71,17 @@ def _imported_roots(path):
 
 
 def test_port_sources_do_not_name_jax():
+    # The port keeps its own copies of what it needs from the JAX package,
+    # even of modules there that import no JAX.
     for path in (ROOT / "regtr_tpu_torch").rglob("*.py"):
         for line, root in _imported_roots(path):
-            assert root not in ("jax", "flax", "yaml"), (path, line)
+            assert root not in ("jax", "flax", "optax", "yaml", "regtr_tpu",
+                                "tools"), (path, line)
     # chip_smoke.py runs where only torch and numpy are installed: it uses
     # the port alone, not the JAX package nor its tools.
     for line, root in _imported_roots(ROOT / "chip_smoke.py"):
-        assert root not in ("jax", "flax", "yaml", "regtr_tpu", "tools"), line
+        assert root not in ("jax", "flax", "optax", "yaml", "regtr_tpu",
+                            "tools"), line
 
 
 @pytest.mark.parametrize("path", CONFS, ids=lambda p: Path(p).stem)
@@ -101,8 +122,6 @@ def _jax_style_params(model):
             flat[f"{path}/scale"] = t.numpy().copy()
         else:
             flat[f"{path}/{leaf}"] = t.numpy().copy()
-    for key in LOSS_ONLY_LEAVES:
-        flat[key] = np.zeros((4, 4), np.float32)
     return flat
 
 
@@ -117,9 +136,9 @@ def test_convert_fills_every_forward_param(small_model):
     assert set(sd) == set(small_model.state_dict())
     for name, t in small_model.state_dict().items():
         torch.testing.assert_close(sd[name], t, rtol=0, atol=0)
-    # exactly the two loss-only leaves are left out
-    used = len(flat) - len(LOSS_ONLY_LEAVES)
-    assert used == len(sd)
+    # every leaf is carried, the two InfoNCE matrices of the loss included
+    assert {"feature_criterion/W", "feature_criterion_un/W"} <= set(flat)
+    assert len(flat) == len(sd)
 
 
 def test_convert_refuses_missing_and_unknown(small_model):
