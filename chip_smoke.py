@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's inference path and training step on one CUDA
-card.
+"""Drive the PyTorch port's inference path, training step and 3DMatch test
+protocol on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -8,12 +8,18 @@ Run from the root of a checkout on a machine with a CUDA card (it exits
 non-zero without one, and without the checkout beside it).  Phases:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
-2. build: one nvcc per kernel source, all at once, into .build/;
+2. build: one nvcc per kernel source (csrc/flash_attn_fwd.cu,
+   flash_attn_bwd.cu, segsum.cu, gather.cu), all at once, into .build/;
 3. attention kernels against their plain PyTorch versions on the card, at
    the inference and training shapes and at ragged shapes, bf16 and fp32,
    with a fully masked row: the forward and its lse, the backward's dq, dk,
    dv and dbias; CUDA-event times of each kernel, its plain version and
    scaled_dot_product_attention (timed as a yardstick only);
+3b. gather kernels (K5) against index_select and torch.gather, bitwise: the
+   row gather at the main path's shapes (the inference feature and
+   coordinate gathers, the training feature gather) and at ragged widths,
+   the element gather on both axes, 2-D and batched; CUDA-event times
+   beside the bound and the library call;
 4. small input: the tiny config in fp32 on the card against the same model
    on the CPU (plain versions), same seeded parameters and input: the
    forward, and the gradients of one training step leaf by leaf;
@@ -22,18 +28,27 @@ non-zero without one, and without the checkout beside it).  Phases:
    meter scale, on a 2.5 cm grid, made here with numpy): register() once,
    then the batched forward, timed, with per-stage times, a torch.profiler
    pass (device busy share, top kernels; the trace goes to
-   .build/forward_trace.json), checks of the outputs, of the kernel's launch
-   count, of the pyramid's bitwise repeatability, and of the kernel path
-   against a forward whose attention calls the plain version;
+   .build/forward_trace.json), checks of the outputs, of the kernels'
+   launch counts, of the pyramid's bitwise repeatability, of the kernel path
+   against a forward whose attention calls the plain version, and of the
+   forward with K5 against the forward with index_select (bitwise);
 6. training path: the shipped 3DMatch config (fp32) on 2 pairs of those
    scans with GT poses and overlap labels, collated at the bucket the
    config picks (24576): the segment-sum kernel against its plain version
    and index_add_ on the step's level-0 table; the first step's gradients
-   on the kernel path against the plain attention and gather transpose;
-   2 warm-up and 20 timed steps (ms/step, pairs/s, peak memory, launch
-   counts, finite losses, a falling loss); a NaN batch that must skip its
-   update; per-stage times; a torch.profiler pass (trace in
-   .build/train_trace.json).
+   on the kernel path against the plain attention, gather and gather
+   transpose, and bitwise against the same step with index_select in
+   place of K5; 2 warm-up and 20 timed steps (ms/step, pairs/s, peak
+   memory, launch counts, finite losses, a falling loss); a NaN batch that
+   must skip its update; per-stage times; a torch.profiler pass (trace in
+   .build/train_trace.json);
+7. test protocol: a synthetic data root in 3DMatch's on-disk formats under
+   .build/protocol (2 scenes of 6 scans of 19k points, GT trajectories for
+   3DMatch and 3DLoMatch), run_test on the shipped config (fp32, batch 1,
+   the model at the largest bucket) for both benchmarks: launch counts,
+   est.log contents, poses against a direct forward, recall 1.0 for GT
+   poses, pairs/s and per-stage times; then `python -m
+   regtr_tpu_torch.test` on the same parameters saved as .npz.
 
 It imports torch, numpy, scipy and regtr_tpu_torch, nothing of JAX.
 
@@ -43,7 +58,11 @@ check exits non-zero before either.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import os
+import pickle
+import shutil
 import statistics
 import subprocess
 import sys
@@ -108,15 +127,19 @@ def cuda_ms(fn, iters=30, warmup=5):
     return statistics.median(times)
 
 
+def card_line():
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
 def phase_device():
     import torch
 
     log("== phase 1: device")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()
-    log(smi[0])
+    log(card_line())
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}, "
         f"{torch.cuda.device_count()} device(s): "
@@ -124,10 +147,10 @@ def phase_device():
 
 
 def kernel_libraries():
-    from regtr_tpu_torch.ops import attention, kpconv
+    from regtr_tpu_torch.ops import attention, gather, kpconv
 
     return [attention.FWD_LIBRARY, attention.BWD_LIBRARY,
-            kpconv.SEGSUM_LIBRARY]
+            kpconv.SEGSUM_LIBRARY, gather.GATHER_LIBRARY]
 
 
 def phase_build():
@@ -321,6 +344,107 @@ def _time_attention(shape, name, q, k, v, bias, do, out, lse, delta, scale,
                "plain_ms": plain_bwd_ms, "bound_ms": dq_bound[0],
                "bound_by": dq_bound[1], "library_ms": lib_bwd_ms},
     }
+
+
+def neighbor_like_ids(gen, clouds, n, k):
+    """Flat ids as a level's neighbor table gives them for `clouds` clouds
+    of n points, each followed by its pad (shadow) row: a query's K
+    neighbors near it in the spatially sorted order, a third of the slots
+    the shadow row.  (clouds * n * k,) int64 on the card."""
+    import torch
+
+    q = torch.arange(n)[None, :, None]
+    near = (q + torch.randint(-256, 257, (clouds, n, k), generator=gen)
+            ).clamp(0, n - 1)
+    shadow = torch.rand(clouds, n, k, generator=gen) < 0.3
+    ids = (torch.where(shadow, n, near)
+           + torch.arange(clouds)[:, None, None] * (n + 1))
+    return ids.reshape(-1).to(DEVICE)
+
+
+def phase_gather(train_n0):
+    """K5 against its plain versions (index_select, torch.gather), bitwise:
+    the row gather at the main path's shapes and at ragged ones, the
+    element gather on both axes, 2-D and batched.  Returns the kernels
+    line's numbers."""
+    import torch
+
+    from regtr_tpu_torch.ops.gather import (element_gather,
+                                            element_gather_reference,
+                                            row_gather, row_gather_reference)
+
+    log("== phase 3b: gather kernels (K5) vs index_select / torch.gather")
+    gen = torch.Generator().manual_seed(5)
+    rows_result = []
+    for clouds, n, k, c, dtype, what in (
+            (2 * N_PAIRS, N0, 32, 32, torch.bfloat16, "inference features"),
+            (2 * N_PAIRS, N0, 32, 3, torch.float32, "inference coordinates"),
+            (4, train_n0, 32, 32, torch.float32, "training features")):
+        table = torch.randn(clouds * (n + 1), c, generator=gen).to(DEVICE,
+                                                                   dtype)
+        ids = neighbor_like_ids(gen, clouds, n, k)
+        got = row_gather(table, ids)
+        ref = row_gather_reference(table, ids)
+        torch.cuda.synchronize()
+        err = float((got.float() - ref.float()).abs().max())
+        check(torch.equal(got, ref), f"row gather {what} ({ids.shape[0]} "
+              f"rows x {c} {dtype}) bitwise equal to index_select")
+        ms = cuda_ms(lambda: row_gather(table, ids))
+        plain_ms = cuda_ms(lambda: row_gather_reference(table, ids))
+        lib_ms = cuda_ms(lambda: torch.index_select(table, 0, ids))
+        item = table.element_size()
+        # reads the table and the ids, writes the rows; no arithmetic
+        bnd = bound(0, table.numel() * item + ids.numel() * 8
+                    + got.numel() * item, "float32")
+        log(f"  row gather {what}: kernel {ms:.4f} ms (bound "
+            f"{bnd[0]:.4f}, {bnd[1]}; {bnd[0] / ms * 100:.1f} % of it), "
+            f"plain {plain_ms:.4f}, index_select {lib_ms:.4f} ms (medians "
+            f"of 30, CUDA events)")
+        rows_result.append(dict(
+            what=what, shape=[ids.shape[0], c], dtype=str(dtype)[6:],
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd[0],
+            bound_by=bnd[1], library_ms=lib_ms))
+        del table, ids, got, ref
+    # ragged widths (every vector width) and row counts off every block
+    for c in (1, 3, 7, 32, 65, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            table = torch.randn(3001, c, generator=gen).to(DEVICE, dtype)
+            ids = torch.randint(0, 3000, (70001,), generator=gen).to(DEVICE)
+            shifted = table.view(-1)[1:1 + 3000 * c].view(3000, c)
+            same = (torch.equal(row_gather(table, ids),
+                                row_gather_reference(table, ids))
+                    and torch.equal(row_gather(shifted, ids),
+                                    row_gather_reference(shifted, ids)))
+            check(same, f"row gather 70001 x {c} {dtype} (aligned and "
+                  "offset table) bitwise equal to index_select")
+    for shape, axis, dtype in (((5120, 32), 0, torch.float32),
+                               ((5120, 32), 1, torch.float32),
+                               ((5120, 32), 0, torch.bfloat16),
+                               ((5120, 32), 1, torch.bfloat16),
+                               ((160, 5120, 32), 0, torch.bfloat16),
+                               ((160, 32, 5120), 1, torch.float32)):
+        src = torch.randn(*shape, generator=gen).to(DEVICE, dtype)
+        idx = torch.randint(0, shape[len(shape) - 2 + axis], shape,
+                            generator=gen).to(DEVICE)
+        got = element_gather(src, idx, axis)
+        ref = element_gather_reference(src, idx, axis)
+        torch.cuda.synchronize()
+        err = float((got.float() - ref.float()).abs().max())
+        check(torch.equal(got, ref), f"element gather {shape} axis {axis} "
+              f"{dtype} bitwise equal to torch.gather")
+    # the batched probe at one level-0 cloud's tiles, timed
+    ms = cuda_ms(lambda: element_gather(src, idx, axis))
+    plain_ms = cuda_ms(lambda: element_gather_reference(src, idx, axis))
+    lib_ms = cuda_ms(lambda: torch.gather(src, 2, idx))
+    bnd = bound(0, src.numel() * 4 + idx.numel() * 8 + got.numel() * 4,
+                "float32")
+    log(f"  element gather {shape} axis {axis} fp32: kernel {ms:.4f} ms "
+        f"(bound {bnd[0]:.4f}, {bnd[1]}), plain {plain_ms:.4f}, "
+        f"torch.gather {lib_ms:.4f} ms (medians of 30, CUDA events)")
+    return rows_result, dict(shape=list(shape), axis=axis, dtype="float32",
+                             max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bnd[0], bound_by=bnd[1],
+                             library_ms=lib_ms)
 
 
 def phase_small_input():
@@ -608,6 +732,7 @@ def phase_main_path():
     mask = torch.from_numpy(mask_np).to(DEVICE)
     n_layers = cfg["num_encoder_layers"]
     per_forward = 2 * n_layers           # self + cross attention per layer
+    gathers = row_gathers_per_forward(cfg)
 
     flash_masked_attention.launches = 0
     # -- register() on one pair
@@ -629,7 +754,7 @@ def phase_main_path():
             out = model(pts, mask)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        flash_masked_attention.launches = 0
+        _zero_launch_counts()
         rates = []
         for _ in range(REPEATS):
             t0 = time.perf_counter()
@@ -637,11 +762,14 @@ def phase_main_path():
                 out = model(pts, mask)
             torch.cuda.synchronize()
             rates.append(N_PAIRS * TIMED_ITERS / (time.perf_counter() - t0))
-        launches = flash_masked_attention.launches
+        launches = _launch_counts()
     forwards = REPEATS * TIMED_ITERS
-    check(launches == per_forward * forwards,
-          f"{launches} kernel launches in {forwards} forwards "
-          f"({per_forward} per forward)")
+    check(launches == {"flash_attn_fwd": per_forward * forwards,
+                       "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0,
+                       "segsum": 0, "row_gather": gathers * forwards,
+                       "element_gather": 0},
+          f"launches in {forwards} forwards: {launches} ({per_forward} "
+          f"attention forwards and {gathers} row gathers per forward)")
     peak = torch.cuda.max_memory_allocated()
     pairs_per_s = statistics.median(rates)
     log(f"forward: {N_PAIRS / pairs_per_s * 1e3:.1f} ms per batch of "
@@ -731,25 +859,93 @@ def phase_main_path():
         err = rel_l2(out[key], plain[key])
         check(err < TOL["bfloat16"],
               f"{key}: kernel path vs plain attention, rel L2 {err:.2e}")
+
+    # -- K5 vs index_select in the whole forward: a gather is a copy, so
+    # the outputs are bitwise equal (and the forward repeats bitwise)
+    with torch.inference_mode():
+        again = model(pts, mask)
+        with plain_row_gather():
+            plain = model(pts, mask)
+        torch.cuda.synchronize()
+    keys = ("feats_un", "feats_cond", "corr", "overlap_logits", "pose")
+    check(all(torch.equal(out[k], again[k]) for k in keys),
+          "forward bitwise repeatable")
+    check(all(torch.equal(out[k], plain[k]) for k in keys),
+          "forward with K5 bitwise equal to the forward with index_select "
+          f"({', '.join(keys)})")
+    with torch.inference_mode():
+        ab = k5_against_index_select(lambda: model(pts, mask), TIMED_ITERS)
+    log(f"forward, K5 vs index_select in turns ({TIMED_ITERS} forwards "
+        f"each, host clock): {ab} ms per batch")
     return launches, forwards
 
 
-def _launch_counts():
-    from regtr_tpu_torch.ops import attention, kpconv
+def _counted():
+    """Every kernel wrapper, by the name the kernels line gives it."""
+    from regtr_tpu_torch.ops import attention, gather, kpconv
 
-    return {"flash_attn_fwd": attention.flash_masked_attention.launches,
-            "flash_attn_bwd_dkv": attention.flash_attn_bwd_dkv.launches,
-            "flash_attn_bwd_dq": attention.flash_attn_bwd_dq.launches,
-            "segsum": kpconv.sorted_padded_segment_sum.launches}
+    return {"flash_attn_fwd": attention.flash_masked_attention,
+            "flash_attn_bwd_dkv": attention.flash_attn_bwd_dkv,
+            "flash_attn_bwd_dq": attention.flash_attn_bwd_dq,
+            "segsum": kpconv.sorted_padded_segment_sum,
+            "row_gather": gather.row_gather,
+            "element_gather": gather.element_gather}
+
+
+def _launch_counts():
+    return {k: fn.launches for k, fn in _counted().items()}
 
 
 def _zero_launch_counts():
-    from regtr_tpu_torch.ops import attention, kpconv
+    for fn in _counted().values():
+        fn.launches = 0
 
-    attention.flash_masked_attention.launches = 0
-    attention.flash_attn_bwd_dkv.launches = 0
-    attention.flash_attn_bwd_dq.launches = 0
-    kpconv.sorted_padded_segment_sum.launches = 0
+
+def row_gathers_per_forward(cfg):
+    """K5 row-gather launches in one forward: the first block at each
+    (conv or pool, level) table gathers its features and its neighbors'
+    coordinates (kpconv_fused_gather), later blocks at that table only the
+    features (kpconv_apply)."""
+    from regtr_tpu_torch.nn.backbone import encoder_plan
+
+    seen, n = set(), 0
+    for name, *_, li in encoder_plan(cfg)[0]:
+        key = ("pool" if "strided" in name else "conv", li)
+        n += 1 if key in seen else 2
+        seen.add(key)
+    return n
+
+
+def k5_against_index_select(run, iters):
+    """Milliseconds per call of run() with K5 and with index_select in its
+    place, in turns (K5, index_select, index_select, K5), `iters` calls
+    each, synchronized: "K5 a / b, index_select a / b"."""
+    import torch
+
+    times = {"K5": [], "index_select": []}
+    for route in ("K5", "index_select", "index_select", "K5"):
+        with (plain_row_gather() if route == "index_select"
+              else contextlib.nullcontext()):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(iters):
+                run()
+            torch.cuda.synchronize()
+        times[route].append((time.perf_counter() - t) / iters * 1e3)
+    return ", ".join(f"{k} " + " / ".join(f"{x:.2f}" for x in v)
+                     for k, v in times.items())
+
+
+@contextlib.contextmanager
+def plain_row_gather():
+    """Every neighbor gather through index_select instead of K5."""
+    from regtr_tpu_torch.ops import gather, kpconv
+
+    kpconv.row_gather = gather.row_gather_reference
+    try:
+        yield
+    finally:
+        kpconv.row_gather = gather.row_gather
 
 
 def check_segsum(table, n_pad):
@@ -845,42 +1041,54 @@ def phase_training():
     # one gather with a gradient per block after the first (the first
     # block's input is the constant feature, which has none)
     n_segsum = len(cfg["architecture"]) - 1
+    gathers = row_gathers_per_forward(cfg)
 
     # -- K4 on the step's own level-0 neighbor table
     with torch.no_grad():
         levels = model.preprocess(batch["points"], batch["mask"])
     segsum = check_segsum(levels[0].neighbors, n0 + 1)
 
-    # -- first-step gradients: kernels vs the plain attention and gather
-    # transpose on the card, same parameters and batch
+    # -- first-step gradients: kernels vs the plain attention, gather and
+    # gather transpose on the card, same parameters and batch; and the
+    # kernels with only K5 replaced by index_select, and once more
     grads = {}
     kernel_attention = transformer.flash_masked_attention
     kernel_gather = kpconv.batched_row_gather_padded
-    for route in ("kernels", "plain"):
-        if route == "plain":
-            transformer.flash_masked_attention = \
-                attention.flash_masked_attention_plain
-            kpconv.batched_row_gather_padded = \
-                kpconv.batched_row_gather_padded_plain
-        try:
-            before = _launch_counts()
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            losses, _ = steps.forward_loss(model, batch)
-            g, _ = steps.backward(opt, losses["total"])
-            torch.cuda.synchronize()
-            elapsed = time.perf_counter() - t
-            grads[route] = g
-            used = {k: v - before[k] for k, v in _launch_counts().items()}
-        finally:
-            transformer.flash_masked_attention = kernel_attention
-            kpconv.batched_row_gather_padded = kernel_gather
+    kernels = {"flash_attn_fwd": n_attn, "flash_attn_bwd_dkv": n_attn,
+               "flash_attn_bwd_dq": n_attn, "segsum": n_segsum,
+               "row_gather": gathers, "element_gather": 0}
+    wants = {"kernels": kernels, "index_select": dict(kernels, row_gather=0),
+             "plain": dict.fromkeys(kernels, 0), "kernels again": kernels}
+    for route, want in wants.items():
+        with contextlib.ExitStack() as stack:
+            if route in ("plain", "index_select"):
+                stack.enter_context(plain_row_gather())
+            if route == "plain":
+                transformer.flash_masked_attention = \
+                    attention.flash_masked_attention_plain
+                kpconv.batched_row_gather_padded = \
+                    kpconv.batched_row_gather_padded_plain
+            try:
+                before = _launch_counts()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                losses, _ = steps.forward_loss(model, batch)
+                g, _ = steps.backward(opt, losses["total"])
+                torch.cuda.synchronize()
+                elapsed = time.perf_counter() - t
+                grads[route] = g
+                used = {k: v - before[k] for k, v in _launch_counts().items()}
+            finally:
+                transformer.flash_masked_attention = kernel_attention
+                kpconv.batched_row_gather_padded = kernel_gather
         log(f"first step, {route}: loss {losses['total'].item():.5f}, "
             f"forward + backward {elapsed * 1e3:.1f} ms, launches {used}")
-        want = ({"flash_attn_fwd": n_attn, "flash_attn_bwd_dkv": n_attn,
-                 "flash_attn_bwd_dq": n_attn, "segsum": n_segsum}
-                if route == "kernels" else dict.fromkeys(used, 0))
         check(used == want, f"{route} route launched {want}")
+    for route in ("kernels again", "index_select"):
+        check(all(torch.equal(a, b) for a, b in zip(grads["kernels"],
+                                                     grads[route])),
+              f"first-step gradients, kernels vs {route}: bitwise equal "
+              f"over all {len(grads[route])} parameters")
     names = [n for n, _ in model.named_parameters()]
     errs = sorted(((rel_l2(a, b), n) for n, a, b in
                    zip(names, grads["kernels"], grads["plain"])
@@ -904,13 +1112,10 @@ def phase_training():
     elapsed = time.perf_counter() - t0
     launches = _launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    want = {"flash_attn_fwd": n_attn * TRAIN_STEPS,
-            "flash_attn_bwd_dkv": n_attn * TRAIN_STEPS,
-            "flash_attn_bwd_dq": n_attn * TRAIN_STEPS,
-            "segsum": n_segsum * TRAIN_STEPS}
+    want = {k: v * TRAIN_STEPS for k, v in kernels.items()}
     check(launches == want, f"launches in {TRAIN_STEPS} steps: {launches} "
-          f"({n_attn} attention forwards and backwards and {n_segsum} "
-          f"segment sums per step)")
+          f"({n_attn} attention forwards and backwards, {n_segsum} "
+          f"segment sums and {gathers} row gathers per step)")
     totals = [float(m["total"]) for m in history]
     norms = [float(m["grad_norm"]) for m in history]
     log(f"train: {elapsed / TRAIN_STEPS * 1e3:.1f} ms per step, "
@@ -961,9 +1166,287 @@ def phase_training():
     log("stages (median ms of 5, host clock around synchronized stages): "
         + ", ".join(f"{k} {statistics.median(v) * 1e3:.2f}"
                     for k, v in stages.items()))
+
+    def forward_backward():
+        losses, _ = steps.forward_loss(model, batch)
+        steps.backward(opt, losses["total"])
+
+    log("forward + loss + backward, K5 vs index_select in turns (5 each, "
+        f"host clock): {k5_against_index_select(forward_backward, 5)} ms")
     profile_device(lambda: step(batch), PROFILED_ITERS, "step",
                    "train_trace.json")
     return launches, segsum
+
+
+# The test protocol's synthetic data root: scenes of PROTOCOL_FRAGMENTS
+# scans each, every scan N_POINTS points of one room on the 2.5 cm grid,
+# centres PROTOCOL_STEP m apart; 3DMatch pairs the nearer scans, 3DLoMatch
+# the farther ones.  Recall counts the non-consecutive pairs only.
+PROTOCOL_SCENES = 2
+PROTOCOL_FRAGMENTS = 6
+PROTOCOL_STEP = 0.35
+PROTOCOL_PAIRS = {"3DMatch": [(0, 1), (0, 2), (1, 3), (2, 4), (3, 5)],
+                  "3DLoMatch": [(0, 3), (1, 4), (2, 5), (0, 4), (1, 5)]}
+
+
+def write_protocol_root(base):
+    """A data root in 3DMatch's on-disk formats, laid out as the upstream
+    sources expect it from their src/ directory: base/data/indoor/test/
+    <scene>/cloud_bin_<i>.pth (pickled numpy arrays, as torch.save writes
+    them), base/src/datasets/3dmatch/test_<benchmark>_info.pkl ({src, tgt,
+    rot, trans, overlap}) and .../benchmarks/<benchmark>/<scene>/gt.log and
+    gt.info (Redwood format).  A pair (i, j), i < j, has src = fragment j,
+    tgt = fragment i and the pose tgt <- src; gt.log's header is "i j n"."""
+    import torch
+
+    from regtr_tpu_torch.core import se3_np
+    from regtr_tpu_torch.data.overlap import compute_overlap
+
+    shutil.rmtree(base, ignore_errors=True)
+    meta = base / "src" / "datasets" / "3dmatch"
+    infos = {bm: {"src": [], "tgt": [], "rot": [], "trans": [],
+                  "overlap": []} for bm in PROTOCOL_PAIRS}
+    rng = np.random.RandomState(7)
+    for si in range(PROTOCOL_SCENES):
+        scene = f"synthroom-{si}"
+        (base / "data" / "indoor" / "test" / scene).mkdir(parents=True)
+        room, (lx, ly) = make_room(rng, 600000)
+        _, first = np.unique(np.floor(room / VOXEL).astype(np.int64),
+                             axis=0, return_index=True)
+        room = room[np.sort(first)]
+        poses, local = [], []
+        for i in range(PROTOCOL_FRAGMENTS):
+            center = np.array([lx * 0.2 + i * PROTOCOL_STEP, ly * 0.5, 1.1])
+            dist = np.linalg.norm(room - center, axis=1)
+            world = room[np.argpartition(dist, N_POINTS)[:N_POINTS]]
+            pose = se3_np.se3_init(_rotation(rng, 180.0),
+                                   rng.randn(3) * 0.5)      # frame -> world
+            local.append(se3_np.se3_transform(se3_np.se3_inv(pose), world)
+                         .astype(np.float32))
+            torch.save(local[-1], base / "data" / "indoor" / "test" / scene
+                       / f"cloud_bin_{i}.pth")
+            poses.append(pose)
+        for bm, pairs in PROTOCOL_PAIRS.items():
+            gt = meta / "benchmarks" / bm / scene
+            gt.mkdir(parents=True)
+            with open(gt / "gt.log", "w") as f, open(gt / "gt.info",
+                                                      "w") as g:
+                for i, j in pairs:
+                    rel = se3_np.se3_cat(se3_np.se3_inv(poses[i]), poses[j])
+                    ov, _, _ = compute_overlap(
+                        se3_np.se3_transform(rel, local[j]), local[i],
+                        0.0375)
+                    info = infos[bm]
+                    info["src"].append(f"test/{scene}/cloud_bin_{j}.pth")
+                    info["tgt"].append(f"test/{scene}/cloud_bin_{i}.pth")
+                    info["rot"].append(rel[:, :3])
+                    info["trans"].append(rel[:, 3:])
+                    info["overlap"].append(float(ov.mean()))
+                    for out, mat in ((f, np.concatenate(
+                            [rel, [[0.0, 0.0, 0.0, 1.0]]])),
+                                     (g, np.eye(6) * 100.0)):
+                        out.write(f"{i}\t{j}\t{PROTOCOL_FRAGMENTS}\n")
+                        for row in mat:
+                            out.write("\t".join(f"{v:.12f}" for v in row)
+                                      + "\n")
+    for bm, info in infos.items():
+        info = {k: np.stack(v) if k in ("rot", "trans") else
+                (np.asarray(v) if k == "overlap" else v)
+                for k, v in info.items()}
+        with open(meta / f"test_{bm}_info.pkl", "wb") as f:
+            pickle.dump(info, f)
+        log(f"  {bm}: {len(info['src'])} pairs, overlap "
+            f"{info['overlap'].min():.2f}-{info['overlap'].max():.2f}")
+    return meta
+
+
+@contextlib.contextmanager
+def timed_protocol(record, stages):
+    """run_test with its forward, est.log writes and scorer timed (the
+    forward synchronized), and each forward's inputs and final poses
+    recorded."""
+    import torch
+
+    from regtr_tpu_torch import evaluation
+    from regtr_tpu_torch.benchmark import predator
+    from regtr_tpu_torch.train.steps import make_forward
+
+    saved = (evaluation.make_forward, predator.write_est_log,
+             predator.benchmark)
+
+    def timed(name, fn, sync=False):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
+            stages[name] += time.perf_counter() - t
+            return out
+        return run
+
+    def recording_forward(model):
+        fwd = timed("forward", make_forward(model), sync=True)
+
+        def run(points, mask):
+            out = fwd(points, mask)
+            record.append((points, mask, out["pose"][-1].clone()))
+            return out
+        return run
+
+    evaluation.make_forward = recording_forward
+    predator.write_est_log = timed("est_log", predator.write_est_log)
+    predator.benchmark = timed("scorer", predator.benchmark)
+    try:
+        yield
+    finally:
+        (evaluation.make_forward, predator.write_est_log,
+         predator.benchmark) = saved
+
+
+def phase_protocol():
+    """The 3DMatch and 3DLoMatch test protocols (run_test) on the shipped
+    config at full width, and the port's command line on the same
+    parameters.  Returns the launch counts and the protocol's numbers."""
+    import torch
+
+    from regtr_tpu_torch import evaluation
+    from regtr_tpu_torch.benchmark import predator
+    from regtr_tpu_torch.config import threedmatch_config
+    from regtr_tpu_torch.data import get_dataloader
+    from regtr_tpu_torch.models import create_model
+    from regtr_tpu_torch.train.checkpoints import save_params_npz
+    from regtr_tpu_torch.train.steps import make_forward
+
+    log("== phase 7: the 3DMatch / 3DLoMatch test protocol "
+        "(conf/3dmatch.yaml as shipped)")
+    base = ROOT / ".build" / "protocol"
+    t0 = time.perf_counter()
+    meta = write_protocol_root(base)
+    log(f"synthetic data root under {base.relative_to(ROOT)}: "
+        f"{PROTOCOL_SCENES} scenes x {PROTOCOL_FRAGMENTS} scans of "
+        f"{N_POINTS} points, written in {time.perf_counter() - t0:.1f} s")
+    shipped = threedmatch_config()
+    model = create_model(shipped, max(shipped["buckets"]), DEVICE, seed=0)
+    log(f"model at the largest bucket {max(shipped['buckets'])} (caps "
+        f"{model.spec.capacities}), {shipped['compute_dtype']}, "
+        f"test_batch_size {shipped['test_batch_size']}, buckets "
+        f"{shipped['buckets']}")
+    per_forward = {"flash_attn_fwd": 2 * shipped["num_encoder_layers"],
+                   "row_gather": row_gathers_per_forward(shipped)}
+    smi = card_line()
+    result = {}
+    for bm in PROTOCOL_PAIRS:
+        cfg = threedmatch_config(root=str(base / "data" / "indoor"),
+                                 metadata_dir=str(meta), benchmark=bm)
+        out_dir = base / "run" / bm
+        if not result:      # warm-up forward at the protocol's bucket
+            batch, _ = next(iter(get_dataloader(cfg, "test",
+                                                num_workers=0)))
+            make_forward(model)(torch.from_numpy(batch["points"]).to(DEVICE),
+                                torch.from_numpy(batch["mask"]).to(DEVICE))
+        record, stages = [], dict.fromkeys(("forward", "est_log", "scorer"),
+                                           0.0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        with timed_protocol(record, stages):
+            results = evaluation.run_test(
+                cfg, model, get_dataloader(cfg, "test", num_workers=4),
+                out_dir, gt_benchmark_dir=str(meta / "benchmarks"))
+        total = time.perf_counter() - t0
+        launches = _launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        n = len(PROTOCOL_PAIRS[bm]) * PROTOCOL_SCENES
+        check(len(record) == n, f"{bm}: {n} pairs, one forward each "
+              f"(test_batch_size 1)")
+        check(launches == dict(dict.fromkeys(launches, 0), **{
+            k: v * n for k, v in per_forward.items()}),
+              f"{bm}: launches {launches}")
+        # est.log: one line group per pair, and the poses the forward gave
+        poses = torch.stack([p for _, _, p in record]).squeeze(1)
+        written = {}
+        for si in range(PROTOCOL_SCENES):
+            pairs, traj = predator.read_trajectory(
+                out_dir / bm / f"synthroom-{si}" / "est.log")
+            check([tuple(p[:2]) for p in pairs] == PROTOCOL_PAIRS[bm]
+                  and bool((pairs[:, 2] == -1).all()),
+                  f"{bm} scene {si}: est.log has one group per pair, in "
+                  "order")
+            written[si] = traj
+        est = np.concatenate([written[si] for si in range(PROTOCOL_SCENES)])
+        err = float(np.abs(est[:, :3] - poses.double().cpu().numpy()).max())
+        check(err <= 5e-13, f"{bm}: est.log poses are the forward's "
+              f"(largest difference {err:.1e}, the %.12f format)")
+        with torch.inference_mode():
+            direct = torch.stack([make_forward(model)(p, m)["pose"][-1]
+                                  for p, m, _ in record]).squeeze(1)
+        check(torch.equal(direct, poses), f"{bm}: the protocol's poses "
+              "bitwise equal a direct make_forward of the same batches")
+        check(all(np.isfinite(results[k]) for k in
+                  ("rot_err_deg_mean", "trans_err_mean")),
+              f"{bm}: finite errors, {results}")
+        # the scorer on est.log files written from the GT poses
+        gt_est = base / "gt_est" / bm
+        for si in range(PROTOCOL_SCENES):
+            scene = f"synthroom-{si}"
+            pairs, traj = predator.read_trajectory(
+                meta / "benchmarks" / bm / scene / "gt.log")
+            (gt_est / scene).mkdir(parents=True)
+            for (i, j, _), pose in zip(pairs, traj):
+                predator.write_est_log(gt_est / scene / "est.log", i, j, pose)
+        _, gt_recall = predator.benchmark(str(gt_est),
+                                          str(meta / "benchmarks" / bm))
+        check(gt_recall == 1.0, f"{bm}: est.log from the GT poses scores "
+              f"recall {gt_recall}")
+        loop = total - stages["scorer"]
+        loading = loop - stages["forward"] - stages["est_log"]
+        log(f"{bm} protocol ({smi}): {n} pairs in {total:.3f} s, "
+            f"{n / loop:.3f} pairs/s over the loop (loading, forward, "
+            f"est.log; host clock); per pair: forward "
+            f"{stages['forward'] / n * 1e3:.1f} ms, waiting on the loader "
+            f"{loading / n * 1e3:.1f} ms, est.log "
+            f"{stages['est_log'] / n * 1e3:.2f} ms; scorer "
+            f"{stages['scorer'] * 1e3:.1f} ms; peak memory "
+            f"{peak / 2**30:.2f} GiB")
+        log(f"{bm} results (random weights, not checked): {results}")
+        result[bm] = dict(launches=launches, pairs=n,
+                          pairs_per_s=n / loop)
+
+    # -- the port's command line, on the same parameters saved as .npz,
+    # from the upstream working directory (the shipped config's root and
+    # the default metadata and GT places resolve from there)
+    npz = base / "ckpt" / "params.npz"
+    npz.parent.mkdir()
+    save_params_npz(npz, model)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "regtr_tpu_torch.test", "--params", str(npz),
+         "--config", str(ROOT / "conf" / "3dmatch.yaml"), "--benchmark",
+         "3DMatch", "--logdir", str(base / "cli_logs")],
+        cwd=meta.parent.parent, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+        capture_output=True, text=True, timeout=600)
+    log(f"python -m regtr_tpu_torch.test: exit {proc.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if proc.returncode != 0:
+        log(proc.stdout[-4000:] + proc.stderr[-4000:])
+    check(proc.returncode == 0, "the command line exits 0")
+    (logdir,) = (base / "cli_logs").iterdir()
+    worst = 0.0
+    for si in range(PROTOCOL_SCENES):
+        scene = f"synthroom-{si}"
+        pairs, traj = predator.read_trajectory(logdir / "3DMatch" / scene
+                                               / "est.log")
+        _, ref = predator.read_trajectory(base / "run" / "3DMatch" / "3DMatch"
+                                          / scene / "est.log")
+        check([tuple(p[:2]) for p in pairs] == PROTOCOL_PAIRS["3DMatch"],
+              f"command line: est.log of scene {si} written")
+        worst = max(worst, float(np.abs(traj - ref).max()))
+    check((logdir / "benchmark_report.txt").exists()
+          and worst <= 1e-5, f"command line: benchmark_report.txt written; "
+          f"its poses vs the in-process run's: largest difference "
+          f"{worst:.1e}")
+    return result
 
 
 def main():
@@ -980,43 +1463,73 @@ def main():
     from regtr_tpu_torch.ops.pyramid import make_pyramid_spec
 
     cfg = threedmatch_config()
-    train_n = make_pyramid_spec(cfg, pick_bucket(
-        N_POINTS, cfg["buckets"])).capacities[-1]
+    train_n0 = pick_bucket(N_POINTS, cfg["buckets"])
+    train_n = make_pyramid_spec(cfg, train_n0).capacities[-1]
     phase_device()
     phase_build()
     attn = phase_attention(train_n)
+    gather_rows, gather_elements = phase_gather(train_n0)
     phase_small_input()
     infer_launches, forwards = phase_main_path()
     train_launches, segsum = phase_training()
+    protocol = phase_protocol()
     k1 = attn[((64, 1872, 1872, 32), "bfloat16")]
     bwd = attn[((32, train_n, train_n, 32), "float32")]
     segsum_shape = [segsum.pop("rows"), segsum.pop("width")]
+    row = dict(gather_rows[0])
+    row.pop("what")
+    protocol_launches = {bm: r["launches"]["row_gather"]
+                         for bm, r in protocol.items()}
     src = "regtr_tpu_torch/csrc/"
     log(json.dumps({"kernels": [
-        dict(name="flash_attn_fwd", route="cuda",
+        dict(name="flash_attn_fwd", row="K1", route="cuda",
              source=src + "flash_attn_fwd.cu",
              replaces="regtr_tpu/ops/pallas/attention.py:49",
-             launches=infer_launches, forwards=forwards,
+             launches=infer_launches["flash_attn_fwd"], forwards=forwards,
              train_launches=train_launches["flash_attn_fwd"],
-             steps=TRAIN_STEPS, shape=[64, 1872, 1872, 32], dtype="bfloat16",
-             **k1["fwd"]),
-        dict(name="flash_attn_bwd_dkv", route="cuda",
+             steps=TRAIN_STEPS, protocol_launches={
+                 bm: r["launches"]["flash_attn_fwd"]
+                 for bm, r in protocol.items()},
+             shape=[64, 1872, 1872, 32], dtype="bfloat16", **k1["fwd"]),
+        dict(name="flash_attn_bwd_dkv", row="K2", route="cuda",
              source=src + "flash_attn_bwd.cu",
              replaces="regtr_tpu/ops/pallas/attention.py:194",
              launches=train_launches["flash_attn_bwd_dkv"],
              steps=TRAIN_STEPS, shape=[32, train_n, train_n, 32],
              dtype="float32", **bwd["dkv"]),
-        dict(name="flash_attn_bwd_dq", route="cuda",
+        dict(name="flash_attn_bwd_dq", row="K3", route="cuda",
              source=src + "flash_attn_bwd.cu",
              replaces="regtr_tpu/ops/pallas/attention.py:232",
              launches=train_launches["flash_attn_bwd_dq"],
              steps=TRAIN_STEPS, shape=[32, train_n, train_n, 32],
              dtype="float32", **bwd["dq"]),
-        dict(name="segsum", route="cuda", source=src + "segsum.cu",
+        dict(name="segsum", row="K4", route="cuda",
+             source=src + "segsum.cu",
              replaces="regtr_tpu/ops/pallas/segsum.py:60",
              launches=train_launches["segsum"], steps=TRAIN_STEPS,
              shape=segsum_shape,
              dtype="float32", **segsum),
+        dict(name="row_gather", row="K5a", route="cuda",
+             source=src + "gather.cu",
+             replaces="tools/exp_pallas_gather.py:44",
+             also_replaces=["tools/exp_pallas_gather.py:77",
+                            "tools/exp_pallas_gather2.py:58",
+                            "tools/exp_pallas_gather2.py:65",
+                            "tools/exp_pallas_gather2.py:71",
+                            "tools/exp_pallas_gather2.py:77",
+                            "tools/exp_pallas_gather3.py:33"],
+             launches=infer_launches["row_gather"], forwards=forwards,
+             train_launches=train_launches["row_gather"],
+             steps=TRAIN_STEPS, protocol_launches=protocol_launches,
+             other_shapes=gather_rows[1:], **row),
+        dict(name="element_gather", row="K5b", route="cuda",
+             source=src + "gather.cu",
+             replaces="tools/exp_pallas_gather3.py:65",
+             also_replaces=["tools/exp_pallas_gather4.py:30",
+                            "tools/exp_pallas_gather5.py:29",
+                            "tools/exp_pallas_gather5.py:67"],
+             launches=infer_launches["element_gather"], on_path=False,
+             **gather_elements),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

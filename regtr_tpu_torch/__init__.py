@@ -1,9 +1,10 @@
 """regtr_tpu_torch: the PyTorch + CUDA port of regtr_tpu (the inference
-forward and the training step).
+forward, the training step and the 3DMatch / 3DLoMatch test protocol).
 
 Imports torch, numpy and scipy, never jax, flax, optax or yaml, and nothing
-of regtr_tpu: the host-side helpers it needs (kernel points, collate,
-overlap labels) are its own copies.
+of regtr_tpu: the host-side code it needs (kernel points, se3_np, the
+dataset, the loader, collate, overlap labels, the Predator scorer) is its
+own copy.
 
 Public convenience surface:
     register(src_xyz, tgt_xyz, params, cfg, device="cuda") -> dict with pose

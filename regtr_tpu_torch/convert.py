@@ -1,4 +1,4 @@
-"""Carry the JAX package's parameters into the port.
+"""Carry parameters between the JAX package and the port.
 
 Input: the flat {"a/b/c": np.ndarray} dict that
 `regtr_tpu.train.checkpoints.save_params_npz` writes (np.load of the .npz
@@ -10,6 +10,7 @@ works as is).  The port's submodules carry the flax names, so the mapping is:
     `W` (`feature_criterion/W`, `feature_criterion_un/W`) keep name and
     shape.
 Any leaf without a counterpart, and any parameter left unfilled, raises.
+`jax_params_from_state_dict` is the inverse mapping.
 """
 from __future__ import annotations
 
@@ -47,3 +48,26 @@ def state_dict_from_jax(flat: Mapping[str, np.ndarray],
         raise KeyError(f"{len(missing)} parameters missing from the JAX "
                        f"params: {missing[:5]}")
     return out
+
+
+def jax_params_from_state_dict(model: torch.nn.Module
+                               ) -> Dict[str, np.ndarray]:
+    """The model's parameters in the JAX layout: the flat {"a/b/c": array}
+    dict that `state_dict_from_jax` reads (Linear weights transposed back to
+    Dense kernels, LayerNorm weights named `scale`)."""
+    linear = {f"{n}.weight" for n, m in model.named_modules()
+              if isinstance(m, torch.nn.Linear)}
+    layer_norm = {f"{n}.weight" for n, m in model.named_modules()
+                  if isinstance(m, torch.nn.LayerNorm)}
+    flat: Dict[str, np.ndarray] = {}
+    for name, t in model.state_dict().items():
+        path, leaf = name.rsplit(".", 1)
+        value = t.detach().cpu().numpy()
+        if name in linear:
+            leaf, value = "kernel", value.T
+        elif name in layer_norm:
+            leaf = "scale"
+        elif leaf not in ("bias", "weights", "W"):
+            raise ValueError(f"no JAX counterpart for {name!r}")
+        flat[f"{path.replace('.', '/')}/{leaf}"] = np.ascontiguousarray(value)
+    return flat

@@ -20,12 +20,15 @@ features and coordinates ride in one gathered row, a TPU trick.  Here the
 coordinates (fp32) and the features (compute dtype) are two gathers with one
 flat index; only the feature gather carries a gradient.
 
-Gradients: every feature gather goes through `batched_row_gather_padded`,
-whose backward is the gather transpose: an fp32 segment sum of the
-cotangent rows by flat index, with the rows of each cloud's pad (shadow)
-row dropped.  On a CUDA tensor it launches csrc/segsum.cu
-(`sorted_padded_segment_sum`, counted in its `.launches`), on a CPU tensor
-it runs the plain version (`padded_segment_sum_reference`).  The kernel
+Gathers: every neighbor gather is one flat row gather over the clouds'
+tables, `row_gather` (ops/gather.py): on a CUDA tensor it launches
+csrc/gather.cu, on a CPU tensor it runs `index_select`.  Its backward is the
+gather transpose: an fp32 segment sum of the cotangent rows by flat index.
+On a CUDA tensor it launches csrc/segsum.cu (`sorted_padded_segment_sum`,
+counted in its `.launches`), on a CPU tensor it runs the plain version
+(`padded_segment_sum_reference`).  Every feature gather goes through
+`batched_row_gather_padded`, whose backward drops the rows of each cloud's
+pad (shadow) row; `batched_row_gather` drops none.  The segment-sum kernel
 adds in a fixed order, so the backward is bitwise repeatable; `index_add_`
 on CUDA adds with atomics in a run-dependent order.
 """
@@ -37,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from .cuda_build import CudaLibrary
+from .gather import row_gather
 
 SHADOW_COORD = 1e6
 
@@ -50,14 +54,6 @@ def _declare_segsum(lib):
 
 
 SEGSUM_LIBRARY = CudaLibrary("segsum.cu", _declare_segsum)
-
-
-def batched_row_gather(x: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
-    """x (B, N, C), inds (B, R) in [0, N) -> (B, R, C), one flat gather."""
-    b, n, c = x.shape
-    offs = torch.arange(b, device=x.device, dtype=inds.dtype)[:, None] * n
-    flat = (inds + offs).reshape(-1)
-    return x.reshape(b * n, c).index_select(0, flat).reshape(b, -1, c)
 
 
 def padded_segment_sum_reference(g: torch.Tensor, flat_ids: torch.Tensor,
@@ -116,39 +112,51 @@ def sorted_padded_segment_sum(g: torch.Tensor, flat_ids: torch.Tensor,
 sorted_padded_segment_sum.launches = 0
 
 
-class _RowGatherPadded(torch.autograd.Function):
-    """Flat row gather whose backward is the padded segment sum `segsum`."""
+class _RowGather(torch.autograd.Function):
+    """Flat row gather (`row_gather`) whose backward is the fp32 gather
+    transpose `segsum`; with `padded`, the cotangents of each cloud's last
+    (pad) row are dropped."""
 
     @staticmethod
-    def forward(ctx, x, inds, segsum):
-        ctx.save_for_backward(inds)
-        ctx.shape, ctx.segsum = x.shape, segsum
-        return batched_row_gather(x, inds)
+    def forward(ctx, x, inds, segsum, padded):
+        b, n, c = x.shape
+        offs = torch.arange(b, device=inds.device, dtype=inds.dtype)[:, None]
+        flat = (inds + offs * n).reshape(-1)
+        ctx.save_for_backward(flat)
+        ctx.shape, ctx.segsum, ctx.padded = x.shape, segsum, padded
+        return row_gather(x.reshape(b * n, c).contiguous(),
+                          flat).reshape(b, -1, c)
 
     @staticmethod
     def backward(ctx, g):
-        (inds,) = ctx.saved_tensors
+        (flat,) = ctx.saved_tensors
         b, n, c = ctx.shape
-        offs = torch.arange(b, device=inds.device, dtype=inds.dtype)[:, None]
-        flat = (inds + offs * n).reshape(-1)
-        dx = ctx.segsum(g.reshape(-1, c), flat, b * n, n)
-        return dx.to(g.dtype).reshape(b, n, c), None, None
+        # A segment stride past the last segment drops no row.
+        stride = n if ctx.padded else b * n + 1
+        dx = ctx.segsum(g.reshape(-1, c), flat, b * n, stride)
+        return dx.to(g.dtype).reshape(b, n, c), None, None, None
+
+
+def batched_row_gather(x: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
+    """x (B, N, C), inds (B, R) in [0, N) -> (B, R, C), one flat row gather.
+    The backward is the fp32 gather transpose (the segsum kernel on CUDA
+    tensors) over every row, cast back to the cotangent's dtype."""
+    return _RowGather.apply(x, inds, sorted_padded_segment_sum, False)
 
 
 def batched_row_gather_padded(x: torch.Tensor, inds: torch.Tensor
                               ) -> torch.Tensor:
     """`batched_row_gather` for operands whose LAST row per cloud is a pad
-    (shadow) row whose gradient the caller discards.  The backward is the
-    fp32 gather transpose (the segsum kernel on CUDA tensors), the pad
-    rows' cotangents dropped, cast back to the cotangent's dtype."""
-    return _RowGatherPadded.apply(x, inds, sorted_padded_segment_sum)
+    (shadow) row whose gradient the caller discards: the backward drops the
+    pad rows' cotangents."""
+    return _RowGather.apply(x, inds, sorted_padded_segment_sum, True)
 
 
 def batched_row_gather_padded_plain(x: torch.Tensor, inds: torch.Tensor
                                     ) -> torch.Tensor:
     """The same gather with the plain gather transpose on any device: what
     a kernel run is compared with."""
-    return _RowGatherPadded.apply(x, inds, padded_segment_sum_reference)
+    return _RowGather.apply(x, inds, padded_segment_sum_reference, True)
 
 
 def _pad_row(x: torch.Tensor, value: float) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """Train and eval steps (counterpart of regtr_tpu/train/steps.py).
 
-One training step is forward + losses, backward, and the clipped
+`make_forward` is the no-gradient forward of the test protocol.  One
+training step is forward + losses, backward, and the clipped
 optimizer update, in that order: `forward_loss`, `backward` and `apply`,
 which `make_train_step` chains and a caller may also time one by one.  It
 is one eager program: the JAX package's split into three jitted programs
@@ -100,3 +101,14 @@ def make_eval_step(model, cfg):
         return metrics
 
     return step
+
+
+def make_forward(model):
+    """-> forward(points, mask) -> the model's outputs, with no gradient
+    recorded (the inference path; run_test calls it)."""
+
+    def forward(points, mask):
+        with torch.inference_mode():
+            return model(points, mask)
+
+    return forward

@@ -145,3 +145,79 @@ def test_segsum_kernel_matches_plain_and_repeats(cuda, c, dtype):
     torch.testing.assert_close(got, ref, rtol=1e-5,
                                atol=1e-5 * float(ref.abs().max()))
     assert not got.view(b, n, c)[:, n // 2:].any()   # pad and empty rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c", [1, 3, 7, 32, 65, 128])
+def test_row_gather_kernel_is_index_select(cuda, c, dtype):
+    """K5's row gather is a copy: bitwise equal to index_select, at widths
+    that take each vector width, and row counts off every block size."""
+    from regtr_tpu_torch.ops.gather import row_gather, row_gather_reference
+
+    g = torch.Generator().manual_seed(c)
+    table = torch.randn(3001, c, generator=g).to(cuda, getattr(torch, dtype))
+    idx = torch.randint(0, 3001, (70001,), generator=g).to(cuda)
+    before = row_gather.launches
+    got = row_gather(table, idx)
+    # an offset view: the kernel takes narrower vectors for its alignment
+    shifted = row_gather(table.view(-1)[1:1 + 3000 * c].view(3000, c),
+                         idx % 3000)
+    torch.cuda.synchronize()
+    assert row_gather.launches == before + 2
+    assert torch.equal(got, row_gather_reference(table, idx))
+    assert torch.equal(shifted, row_gather_reference(
+        table.view(-1)[1:1 + 3000 * c].view(3000, c), idx % 3000))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_element_gather_kernel_is_torch_gather(cuda, axis, dtype):
+    """K5's element gather against torch.gather, bitwise: 2-D, and batched
+    with a batch stride that is not the slices' size."""
+    from regtr_tpu_torch.ops.gather import (element_gather,
+                                            element_gather_reference)
+
+    g = torch.Generator().manual_seed(axis)
+    tdt = getattr(torch, dtype)
+    src = torch.randn(517, 33, generator=g).to(cuda, tdt)
+    n = src.shape[axis]
+    idx = torch.randint(0, n, (600, 33) if axis == 0 else (517, 70),
+                        generator=g).to(cuda)
+    batched = torch.randn(7, 2, 40, 50, generator=g).to(cuda, tdt)[:, 0]
+    bidx = torch.randint(0, (40, 50)[axis], (7, 40, 50), generator=g
+                         ).to(cuda)
+    before = element_gather.launches
+    got = element_gather(src, idx, axis)
+    bgot = element_gather(batched, bidx, axis)
+    torch.cuda.synchronize()
+    assert element_gather.launches == before + 2
+    assert torch.equal(got, element_gather_reference(src, idx, axis))
+    assert torch.equal(bgot, element_gather_reference(batched, bidx, axis))
+
+
+@pytest.mark.cuda
+def test_batched_row_gather_on_the_card(cuda):
+    """batched_row_gather launches K5 forward and K4 backward; both match
+    the CPU (the forward bitwise, the fp32 sums to a few ulps)."""
+    from regtr_tpu_torch.ops import gather, kpconv
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(3, 400, 32, generator=g)
+    inds = torch.randint(0, 400, (3, 5000), generator=g)
+    cot = torch.randn(3, 5000, 32, generator=g)
+    outs = {}
+    for dev in ("cpu", cuda):
+        xd = x.to(dev).requires_grad_()
+        before = (gather.row_gather.launches,
+                  kpconv.sorted_padded_segment_sum.launches)
+        out = kpconv.batched_row_gather(xd, inds.to(dev))
+        (dx,) = torch.autograd.grad(out, xd, cot.to(dev))
+        outs[str(dev)] = (out.detach().cpu(), dx.cpu(), (
+            gather.row_gather.launches - before[0],
+            kpconv.sorted_padded_segment_sum.launches - before[1]))
+    (out_c, dx_c, n_c), (out_g, dx_g, n_g) = outs.values()
+    assert n_c == (0, 0) and n_g == (1, 1)
+    assert torch.equal(out_c, out_g)
+    torch.testing.assert_close(dx_g, dx_c, rtol=1e-5, atol=1e-5)

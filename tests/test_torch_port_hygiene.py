@@ -29,7 +29,12 @@ def test_port_imports_no_jax_flax_or_yaml():
         "regtr_tpu_torch.ops.attention, regtr_tpu_torch.ops.kpconv, "
         "regtr_tpu_torch.losses.feature, regtr_tpu_torch.losses.corr, "
         "regtr_tpu_torch.losses.overlap, regtr_tpu_torch.data.collate, "
-        "regtr_tpu_torch.data.overlap, regtr_tpu_torch.train.steps\n"
+        "regtr_tpu_torch.data.overlap, regtr_tpu_torch.train.steps, "
+        "regtr_tpu_torch.ops.gather, regtr_tpu_torch.core.se3_np, "
+        "regtr_tpu_torch.data, regtr_tpu_torch.benchmark.predator, "
+        "regtr_tpu_torch.train.checkpoints, "
+        "regtr_tpu_torch.train.logging_utils, regtr_tpu_torch.evaluation, "
+        "regtr_tpu_torch.test\n"
         "from regtr_tpu_torch.config import threedmatch_config\n"
         "from regtr_tpu_torch.models import create_model\n"
         "create_model(threedmatch_config(first_feats_dim=16, d_embed=32, "
@@ -73,7 +78,10 @@ def _imported_roots(path):
 def test_port_sources_do_not_name_jax():
     # The port keeps its own copies of what it needs from the JAX package,
     # even of modules there that import no JAX.
-    for path in (ROOT / "regtr_tpu_torch").rglob("*.py"):
+    sources = list((ROOT / "regtr_tpu_torch").rglob("*.py"))
+    for module in ("ops/gather.py", "test.py", "evaluation.py"):
+        assert ROOT / "regtr_tpu_torch" / module in sources
+    for path in sources:
         for line, root in _imported_roots(path):
             assert root not in ("jax", "flax", "optax", "yaml", "regtr_tpu",
                                 "tools"), (path, line)
