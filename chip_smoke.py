@@ -13,8 +13,10 @@ non-zero without one, and without the checkout beside it).  Phases:
 3. attention kernels against their plain PyTorch versions on the card, at
    the inference and training shapes and at ragged shapes, bf16 and fp32,
    with a fully masked row: the forward and its lse, the backward's dq, dk,
-   dv and dbias; CUDA-event times of each kernel, its plain version and
-   scaled_dot_product_attention (timed as a yardstick only);
+   dv and dbias (and each backward kernel bitwise equal over two launches);
+   CUDA-event times of each kernel, its plain version and
+   scaled_dot_product_attention (timed as a yardstick only), the fp32
+   backward beside its 3xTF32 bound and its FMA bound;
 3b. gather kernels (K5) against index_select and torch.gather, bitwise: the
    row gather at the main path's shapes (the inference feature and
    coordinate gathers, the training feature gather) and at ragged widths,
@@ -83,16 +85,21 @@ TRAIN_WARMUP = 2
 TRAIN_STEPS = 20
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # tests/test_pallas_attention.py
 # Backward: every gradient sums N products in another order than the plain
-# version; held to TOL_BWD times its largest magnitude (plus TOL_BWD
-# relative).  bf16: p and ds rounded to bf16 on both sides.
-TOL_BWD = {"bfloat16": 2e-2, "float32": 1e-4}
+# version; held to TOL_BWD times the larger of its largest magnitude and 1
+# (plus TOL_BWD relative), as tests/test_torch_cuda.py holds it.  fp32: the
+# kernels' products run in 3xTF32 (~1e-6 of the largest gradient; one TF32
+# product alone would be ~1e-3).  bf16: p and ds rounded to bf16 on both
+# sides.
+TOL_BWD = {"bfloat16": 2e-2, "float32": 2e-5}
 TOL_LSE = 1e-4        # abs, fp32 logsumexp of the same scores
 TOL_SEGSUM = 1e-5     # x largest |sum|: fp32 sums of the same rows
 TOL_GRAD = 1e-3       # relative L2 per parameter, kernels vs plain (fp32)
 DEVICE = "cuda"
 # NVIDIA's data sheet, H100 SXM at 700 W:
 PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # fp32: no TF32
+# fp32 on the CUDA cores' FMAs; "3xtf32": an fp32 product as three TF32
+# products on the tensor cores (495 TFLOP/s), what K2 and K3 run.
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "3xtf32": 495e12 / 3}
 
 
 def log(*args):
@@ -224,7 +231,8 @@ def phase_attention(train_n):
     train_shape = (32, train_n, train_n, 32)   # 4 clouds x 8 heads
     result = {}
     for shape in [infer_shape, train_shape, (8, 1000, 1313, 16),
-                  (5, 777, 2049, 64), (3, 65, 7, 32)]:
+                  (5, 777, 2049, 64), (3, 65, 7, 32), (2, 17, 9, 16),
+                  (4, 2241, 130, 32)]:
         for name in ("bfloat16", "float32"):
             dtype = getattr(torch, name)
             bh, nq, nk, d = shape
@@ -259,7 +267,14 @@ def phase_attention(train_n):
             dq = flash_attn_bwd_dq(q, k, v, bias, do, lse, delta, scale)
             refs = flash_masked_attention_bwd_reference(q, k, v, bias, out,
                                                         lse, do, scale)
+            again = (flash_attn_bwd_dq(q, k, v, bias, do, lse, delta, scale),
+                     *flash_attn_bwd_dkv(q, k, v, bias, do, lse, delta,
+                                         scale, True))
             torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in
+                      zip((dq, dk, dv, db), again)),
+                  f"{shape} {name} dq, dk, dv, dbias bitwise equal over two "
+                  "launches of each kernel")
             errs = {}
             for gname, got, r in zip(("dq", "dk", "dv", "dbias"),
                                      (dq, dk, dv, db), refs):
@@ -268,7 +283,8 @@ def phase_attention(train_n):
                       f"{shape} {name} {gname} dtype/shape/finite")
                 errs[gname] = float((got.float() - r.float()).abs().max())
                 scale_r = float(r.float().abs().max())
-                check(_excess(got, r, TOL_BWD[name], scale_r) <= TOL_BWD[name],
+                check(_excess(got, r, TOL_BWD[name], max(scale_r, 1.0))
+                      <= TOL_BWD[name],
                       f"{shape} {name} {gname} within tolerance (max abs "
                       f"err {errs[gname]:.3e}, largest |grad| "
                       f"{scale_r:.3e})")
@@ -279,7 +295,28 @@ def phase_attention(train_n):
             result[(shape, name)] = _time_attention(
                 shape, name, q, k, v, bias, do, out, lse, delta, scale, errs,
                 err, F)
+            if (shape, name) == (train_shape, "float32"):
+                result[(shape, name)]["fp64"] = _fp64_errors(
+                    q, k, v, bias, do, scale, (dq, dk, dv, db), refs)
     return result
+
+
+def _fp64_errors(q, k, v, bias, do, scale, kernel, plain):
+    """max |err| / max |grad| of the kernels' and the plain version's fp32
+    gradients against an fp64 backward, on the slices with a valid key (in
+    the fully masked one fp32 rounds the scores into the -1e9 bias)."""
+    from attention_bwd_variants import fp64_backward
+
+    truth = fp64_backward(*(x[1:] for x in (q, k, v, bias, do)), scale)
+    found = {}
+    for who, grads in (("kernel", kernel), ("plain", plain)):
+        found[who] = {
+            nm: float((g[1:].double() - t).abs().max() / t.abs().max())
+            for nm, g, t in zip(("dq", "dk", "dv", "dbias"), grads, truth)}
+    log("    against an fp64 backward (max |err| / max |grad|): " + "; ".join(
+        f"{who} " + ", ".join(f"{nm} {e:.2e}" for nm, e in errs.items())
+        for who, errs in found.items()))
+    return found
 
 
 def _time_attention(shape, name, q, k, v, bias, do, out, lse, delta, scale,
@@ -319,19 +356,34 @@ def _time_attention(shape, name, q, k, v, bias, do, out, lse, delta, scale,
     rows = bh * (nq + nk)
     # the forward reads q, k, v, bias and writes out
     fwd_bound = bound(4 * n2d, 2 * rows * d * width + bh * nk * 4, name)
-    # dkv reads q, k, v, dO, bias, lse, delta; writes dk, dv, dbias
-    dkv_bound = bound(8 * n2d, (2 * rows * d + 2 * bh * nk * d) * width
-                      + (2 * bh * nk + 2 * bh * nq) * 4, name)
-    dq_bound = bound(6 * n2d, (2 * rows * d + bh * nq * d) * width
-                     + (bh * nk + 2 * bh * nq) * 4, name)
+    # dkv reads q, k, v, dO, bias, lse, delta; writes dk, dv, dbias.  The
+    # fp32 backward runs 3xTF32 on the tensor cores: its bound is at that
+    # rate, with the CUDA cores' FMA bound (the yardstick of an FMA design)
+    # beside it.
+    dkv_bytes = ((2 * rows * d + 2 * bh * nk * d) * width
+                 + (2 * bh * nk + 2 * bh * nq) * 4)
+    dq_bytes = ((2 * rows * d + bh * nq * d) * width
+                + (bh * nk + 2 * bh * nq) * 4)
+    bwd_rate = "3xtf32" if name == "float32" else name
+    dkv_bound = bound(8 * n2d, dkv_bytes, bwd_rate)
+    dq_bound = bound(6 * n2d, dq_bytes, bwd_rate)
+    dkv_fma = bound(8 * n2d, dkv_bytes, "float32")
+    dq_fma = bound(6 * n2d, dq_bytes, "float32")
     log(f"  {shape} {name}: forward kernel {fwd_ms:.4f} ms (bound "
         f"{fwd_bound[0]:.4f}, {fwd_bound[1]}), plain {plain_fwd_ms:.4f}, "
-        f"SDPA {lib_fwd_ms:.4f}; backward dkv {dkv_ms:.4f} (bound "
-        f"{dkv_bound[0]:.4f}, {dkv_bound[1]}) + dq {dq_ms:.4f} (bound "
-        f"{dq_bound[0]:.4f}, {dq_bound[1]}), plain {plain_bwd_ms:.4f}, SDPA "
-        f"backward {lib_bwd_ms:.4f} ms (medians of 30, CUDA events); "
-        f"{4 * n2d / fwd_ms / 1e9:.2f} / {8 * n2d / dkv_ms / 1e9:.2f} / "
-        f"{6 * n2d / dq_ms / 1e9:.2f} TFLOP/s")
+        f"SDPA {lib_fwd_ms:.4f} ({4 * n2d / fwd_ms / 1e9:.2f} TFLOP/s); "
+        f"backward plain {plain_bwd_ms:.4f}, SDPA backward "
+        f"{lib_bwd_ms:.4f} ms (medians of 30, CUDA events)")
+    for what, ms, flops, bnd, fma in (("dkv", dkv_ms, 8 * n2d, dkv_bound,
+                                       dkv_fma),
+                                      ("dq", dq_ms, 6 * n2d, dq_bound,
+                                       dq_fma)):
+        tflops = flops / ms / 1e9
+        log(f"    {what} {ms:.4f} ms, {tflops:.2f} TFLOP/s: bound "
+            f"{bnd[0]:.4f} ms at {PEAK_FLOPS[bwd_rate] / 1e12:.0f} TFLOP/s "
+            f"({bwd_rate}, {bnd[1]}; {bnd[0] / ms * 100:.1f} % of it), FMA "
+            f"bound {fma[0]:.4f} ms at 67 TFLOP/s ({fma[0] / ms * 100:.1f} "
+            f"% of it)")
     return {
         "fwd": {"max_abs_err": fwd_err, "ms": fwd_ms,
                 "plain_ms": plain_fwd_ms, "bound_ms": fwd_bound[0],
@@ -339,10 +391,11 @@ def _time_attention(shape, name, q, k, v, bias, do, out, lse, delta, scale,
         "dkv": {"max_abs_err": max(errs["dk"], errs["dv"], errs["dbias"]),
                 "ms": dkv_ms, "plain_ms": plain_bwd_ms,
                 "bound_ms": dkv_bound[0], "bound_by": dkv_bound[1],
-                "library_ms": lib_bwd_ms},
+                "fma_bound_ms": dkv_fma[0], "library_ms": lib_bwd_ms},
         "dq": {"max_abs_err": errs["dq"], "ms": dq_ms,
                "plain_ms": plain_bwd_ms, "bound_ms": dq_bound[0],
-               "bound_by": dq_bound[1], "library_ms": lib_bwd_ms},
+               "bound_by": dq_bound[1], "fma_bound_ms": dq_fma[0],
+               "library_ms": lib_bwd_ms},
     }
 
 
@@ -1475,6 +1528,7 @@ def main():
     protocol = phase_protocol()
     k1 = attn[((64, 1872, 1872, 32), "bfloat16")]
     bwd = attn[((32, train_n, train_n, 32), "float32")]
+    fp64 = bwd.pop("fp64")
     segsum_shape = [segsum.pop("rows"), segsum.pop("width")]
     row = dict(gather_rows[0])
     row.pop("what")
@@ -1496,13 +1550,16 @@ def main():
              replaces="regtr_tpu/ops/pallas/attention.py:194",
              launches=train_launches["flash_attn_bwd_dkv"],
              steps=TRAIN_STEPS, shape=[32, train_n, train_n, 32],
-             dtype="float32", **bwd["dkv"]),
+             dtype="float32", fp64_rel_err={
+                 nm: fp64["kernel"][nm] for nm in ("dk", "dv", "dbias")},
+             **bwd["dkv"]),
         dict(name="flash_attn_bwd_dq", row="K3", route="cuda",
              source=src + "flash_attn_bwd.cu",
              replaces="regtr_tpu/ops/pallas/attention.py:232",
              launches=train_launches["flash_attn_bwd_dq"],
              steps=TRAIN_STEPS, shape=[32, train_n, train_n, 32],
-             dtype="float32", **bwd["dq"]),
+             dtype="float32", fp64_rel_err=fp64["kernel"]["dq"],
+             **bwd["dq"]),
         dict(name="segsum", row="K4", route="cuda",
              source=src + "segsum.cu",
              replaces="regtr_tpu/ops/pallas/segsum.py:60",

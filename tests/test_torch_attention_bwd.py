@@ -122,6 +122,68 @@ def test_lse_of_the_plain_forward():
     assert float(lse[1].max()) == NEG_BIAS
 
 
+def _tf32(x):
+    """cvt.rna.tf32.f32: the fp32 mantissa rounded to 10 bits, ties away
+    from zero (the low 13 bits cleared)."""
+    u = x.contiguous().numpy().view(np.uint32)
+    r = (((u & 0x7FFFFFFF) + 0x1000) & 0x7FFFE000) | (u & 0x80000000)
+    return torch.from_numpy(r.view(np.float32))
+
+
+def _tensor_core_mm(a, b, passes):
+    """a @ b in fp32 as the CUDA backward kernels' tensor cores take fp32
+    operands: 3 passes is the 3xTF32 split (big = tf32(x), small =
+    tf32(x - big); small*big + big*small + big*big), 1 pass plain TF32.
+    Products of TF32 values are exact in fp32; the sums are fp32."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    if passes == 1:
+        return a_big @ b_big
+    a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def _emulated_backward(q, k, v, bias, lse, delta, do, scale, passes):
+    """csrc/flash_attn_bwd.cu's fp32 arithmetic: every product on the
+    tensor cores, exp and the elementwise steps in fp32."""
+    def mm(a, b):
+        return _tensor_core_mm(a, b, passes)
+
+    s = mm(q, k.transpose(1, 2)) * scale + bias[:, None, :]
+    p = torch.exp(s - lse[..., None])
+    ds = p * (mm(do, v.transpose(1, 2)) - delta[..., None])
+    return (mm(ds, k) * scale, mm(ds.transpose(1, 2), q) * scale,
+            mm(p.transpose(1, 2), do), ds.sum(dim=1))
+
+
+@pytest.mark.parametrize("grad", ["dq", "dk", "dv", "dbias"])
+@pytest.mark.parametrize("passes", [3, 1])
+def test_tf32_split_within_the_card_tolerance(passes, grad):
+    """The fp32 kernels' 3xTF32 products, emulated at (2, 512, 512, 32)
+    with masked keys, stay within the card tests' fp32 tolerance of the
+    plain backward (2e-5 of the larger of the largest |gradient| and 1;
+    measured ~6e-7); one TF32 product alone (~5e-4) does not, which is
+    why the kernels have no plain-TF32 path."""
+    from regtr_tpu_torch.ops.attention import attention_delta
+
+    q, k, v, bias, do = (torch.from_numpy(x) for x in
+                         _inputs(2, 512, 512, 32, seed=11))
+    scale = 32 ** -0.5
+    out, lse = flash_masked_attention_reference(q, k, v, bias, scale,
+                                                return_lse=True)
+    names = ("dq", "dk", "dv", "dbias")
+    ref = flash_masked_attention_bwd_reference(q, k, v, bias, out, lse, do,
+                                               scale)[names.index(grad)]
+    got = _emulated_backward(q, k, v, bias, lse, attention_delta(out, do),
+                             do, scale, passes)[names.index(grad)]
+    tol = 2e-5   # tests/test_torch_cuda.py, chip_smoke.py TOL_BWD fp32
+    excess = ((got - ref).abs() - tol * ref.abs()).max() / max(
+        float(ref.abs().max()), 1.0)
+    if passes == 3:
+        assert float(excess) <= tol
+    else:
+        assert float(excess) > 10 * tol
+
+
 def test_plain_route_and_inference_route_agree():
     """flash_masked_attention_plain (what chip_smoke compares the kernels
     with) gives the CPU route's numbers; without a gradient to record the

@@ -73,10 +73,13 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     (3, 200, 333, 16),
     (2, 65, 130, 64),
     (1, 1, 1, 32),
+    (2, 17, 9, 16),          # less than one tile and one chunk each way
+    (4, 2241, 130, 32),      # one query past the last tile, ragged keys
 ])
 def test_backward_kernels_match_plain_version(cuda, bh, nq, nk, d, dtype):
     """K1's lse, and the dkv and dq kernels, against the plain versions on
-    the kernel forward's own output and lse."""
+    the kernel forward's own output and lse; two launches of each kernel
+    bitwise equal."""
     from regtr_tpu_torch.ops.attention import (
         _fwd, attention_delta, flash_attn_bwd_dkv, flash_attn_bwd_dq,
         flash_masked_attention_bwd_reference)
@@ -99,12 +102,21 @@ def test_backward_kernels_match_plain_version(cuda, bh, nq, nk, d, dtype):
     dk, dv, db = flash_attn_bwd_dkv(q, k, v, bias, do, lse, delta,
                                     d ** -0.5, True)
     dq = flash_attn_bwd_dq(q, k, v, bias, do, lse, delta, d ** -0.5)
+    again = (flash_attn_bwd_dq(q, k, v, bias, do, lse, delta, d ** -0.5),
+             *flash_attn_bwd_dkv(q, k, v, bias, do, lse, delta, d ** -0.5,
+                                 True))
     refs = flash_masked_attention_bwd_reference(q, k, v, bias, out, lse, do,
                                                 d ** -0.5)
     torch.cuda.synchronize()
     assert (flash_attn_bwd_dkv.launches, flash_attn_bwd_dq.launches) == (
-        before[0] + 1, before[1] + 1)
-    tol = {"float32": 1e-4, "bfloat16": 2e-2}[dtype]
+        before[0] + 2, before[1] + 2)
+    # No atomics: the same inputs give the same bits.
+    for got, rerun in zip((dq, dk, dv, db), again):
+        assert torch.equal(got, rerun)
+    # fp32: the products run in 3xTF32 (~1e-6 of the largest gradient,
+    # tests/test_torch_attention_bwd.py); one TF32 product alone would be
+    # ~1e-3 and fail.  bf16: p and ds rounded to bf16 on both sides.
+    tol = {"float32": 2e-5, "bfloat16": 2e-2}[dtype]
     for got, ref in zip((dq, dk, dv, db), refs):
         assert got.dtype == ref.dtype and got.shape == ref.shape
         assert torch.isfinite(got.float()).all()
@@ -114,6 +126,43 @@ def test_backward_kernels_match_plain_version(cuda, bh, nq, nk, d, dtype):
         scale = max(float(ref.float().abs().max()), 1.0)
         torch.testing.assert_close(got.float(), ref.float(), rtol=tol,
                                    atol=tol * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_kernels_take_operands_off_16_bytes(cuda, dtype):
+    """Operands 4 bytes past a 16-byte boundary, which the wrappers accept,
+    take the kernels' 4-byte copies: the same bits as aligned copies."""
+    from regtr_tpu_torch.ops.attention import (
+        _fwd, attention_delta, flash_attn_bwd_dkv, flash_attn_bwd_dq)
+
+    g = torch.Generator().manual_seed(3)
+    tdt = getattr(torch, dtype)
+    bh, nq, nk, d = 3, 150, 97, 32
+    off = 4 // torch.empty((), dtype=tdt).element_size()
+
+    def shifted(n):
+        flat = torch.randn(bh * n * d + off, generator=g).to(cuda, tdt)
+        return flat[off:].view(bh, n, d)
+
+    q, k, v, do = shifted(nq), shifted(nk), shifted(nk), shifted(nq)
+    aligned = [x.clone() for x in (q, k, v, do)]
+    assert all(x.data_ptr() % 16 == 4 for x in (q, k, v, do))
+    assert all(x.data_ptr() % 16 == 0 for x in aligned)
+    mask = torch.rand(bh, nk, generator=g) > 0.2
+    mask[:, 0] = True
+    bias = torch.where(mask, 0.0, NEG_BIAS).float().to(cuda)
+    out, lse = _fwd(*aligned[:3], bias, d ** -0.5, True)
+    delta = attention_delta(out, aligned[3])
+    runs = []
+    for qq, kk, vv, dd in ((q, k, v, do), aligned):
+        runs.append((flash_attn_bwd_dq(qq, kk, vv, bias, dd, lse, delta,
+                                       d ** -0.5),
+                     *flash_attn_bwd_dkv(qq, kk, vv, bias, dd, lse, delta,
+                                         d ** -0.5, True)))
+    torch.cuda.synchronize()
+    for got, ref in zip(*runs):
+        assert torch.equal(got, ref)
 
 
 @pytest.mark.cuda

@@ -85,11 +85,13 @@ def test_port_sources_do_not_name_jax():
         for line, root in _imported_roots(path):
             assert root not in ("jax", "flax", "optax", "yaml", "regtr_tpu",
                                 "tools"), (path, line)
-    # chip_smoke.py runs where only torch and numpy are installed: it uses
-    # the port alone, not the JAX package nor its tools.
-    for line, root in _imported_roots(ROOT / "chip_smoke.py"):
-        assert root not in ("jax", "flax", "optax", "yaml", "regtr_tpu",
-                            "tools"), line
+    # chip_smoke.py, and attention_bwd_variants.py which it imports, run
+    # where only torch and numpy are installed: they use the port alone, not
+    # the JAX package nor its tools.
+    for script in ("chip_smoke.py", "attention_bwd_variants.py"):
+        for line, root in _imported_roots(ROOT / script):
+            assert root not in ("jax", "flax", "optax", "yaml", "regtr_tpu",
+                                "tools"), (script, line)
 
 
 @pytest.mark.parametrize("path", CONFS, ids=lambda p: Path(p).stem)
