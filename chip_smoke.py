@@ -7,21 +7,26 @@ protocol on one CUDA card.
 Run from the root of a checkout on a machine with a CUDA card (it exits
 non-zero without one, and without the checkout beside it).  Phases:
 
-1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
+1. device: the card's name and power limit (nvidia-smi), its maximum SM
+   clock, torch and CUDA;
 2. build: one nvcc per kernel source (csrc/flash_attn_fwd.cu,
    flash_attn_bwd.cu, segsum.cu, gather.cu), all at once, into .build/;
 3. attention kernels against their plain PyTorch versions on the card, at
-   the inference and training shapes and at ragged shapes, bf16 and fp32,
-   with a fully masked row: the forward and its lse, the backward's dq, dk,
-   dv and dbias (and each backward kernel bitwise equal over two launches);
-   CUDA-event times of each kernel, its plain version and
-   scaled_dot_product_attention (timed as a yardstick only), the fp32
-   backward beside its 3xTF32 bound and its FMA bound;
+   the inference, training and protocol shapes and at ragged shapes, bf16
+   and fp32, with a fully masked row: the forward and its lse, the
+   backward's dq, dk, dv and dbias (every kernel bitwise equal over two
+   launches); CUDA-event times of each kernel, its plain version and
+   scaled_dot_product_attention (timed as a yardstick only), the forward
+   beside its bound (the largest of bytes, products at the design's rate
+   and exponentials) and the fp32 kernels beside their 3xTF32 and FMA
+   bounds;
 3b. gather kernels (K5) against index_select and torch.gather, bitwise: the
    row gather at the main path's shapes (the inference feature and
    coordinate gathers, the training feature gather) and at ragged widths,
-   the element gather on both axes, 2-D and batched; CUDA-event times
-   beside the bound and the library call;
+   the element gather on both axes, 2-D and batched (rows wider than 48 KB
+   and than a block's shared memory, a batch stride larger than the slice,
+   operands off 16 bytes); CUDA-event times beside the bound and the
+   library call;
 4. small input: the tiny config in fp32 on the card against the same model
    on the CPU (plain versions), same seeded parameters and input: the
    forward, and the gradients of one training step leaf by leaf;
@@ -98,8 +103,16 @@ DEVICE = "cuda"
 # NVIDIA's data sheet, H100 SXM at 700 W:
 PEAK_BYTES = 3.35e12
 # fp32 on the CUDA cores' FMAs; "3xtf32": an fp32 product as three TF32
-# products on the tensor cores (495 TFLOP/s), what K2 and K3 run.
+# products on the tensor cores (495 TFLOP/s), what K1, K2 and K3 run.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "3xtf32": 495e12 / 3}
+# ex2 (the exponent) on the MUFU units: 16 per SM per clock (the CUDA C
+# Programming Guide's throughput table, compute capability 9.0), 132 SMs,
+# at the card's maximum SM clock (read in phase 1).  The bound this gives
+# assumes every 2^x on MUFU, as K1 computes it: a kernel that evaluated part
+# of them as polynomials on the FMA pipe could go below it.
+EXP_PER_SM_CLOCK = 16
+SMS = 132
+SM_CLOCK_HZ = 1980e6
 
 
 def log(*args):
@@ -142,11 +155,33 @@ def card_line():
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+def max_sm_clock_hz():
+    """The card's maximum SM clock in Hz as nvidia-smi reports it, or None
+    when it reports none."""
+    try:
+        text = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.strip().splitlines()[0]
+        return float(text.split()[0]) * 1e6
+    except (OSError, subprocess.SubprocessError, ValueError, IndexError):
+        return None
+
+
 def phase_device():
     import torch
 
+    global SM_CLOCK_HZ
     log("== phase 1: device")
     log(card_line())
+    clock = max_sm_clock_hz()
+    if clock is None:
+        log(f"max SM clock: assumed {SM_CLOCK_HZ / 1e6:.0f} MHz (nvidia-smi "
+            "gave none) for the exponent bound")
+    else:
+        SM_CLOCK_HZ = clock
+        log(f"max SM clock {SM_CLOCK_HZ / 1e6:.0f} MHz (nvidia-smi; the "
+            "exponent bound's)")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}, "
         f"{torch.cuda.device_count()} device(s): "
@@ -187,6 +222,26 @@ def bound(flops, nbytes, dtype):
                                        else "bytes")
 
 
+def attention_fwd_bounds(shape, name):
+    """K1's bounds (ms): the largest of bytes, products at the design's
+    instruction rate (bf16 mma, or 3xTF32 for fp32) and exponentials on
+    MUFU, with its parts and the CUDA cores' FMA bound (the yardstick of an
+    FMA design) beside it."""
+    bh, nq, nk, d = shape
+    width = 2 if name == "bfloat16" else 4
+    flops = 4 * bh * nq * nk * d
+    # reads q, k, v, bias once, writes out once
+    bytes_ms = (2 * bh * (nq + nk) * d * width + bh * nk * 4) / PEAK_BYTES
+    ops_ms = flops / PEAK_FLOPS["3xtf32" if width == 4 else name]
+    exp_ms = bh * nq * nk / (EXP_PER_SM_CLOCK * SMS * SM_CLOCK_HZ)
+    return dict(bound_ms=max(bytes_ms, ops_ms, exp_ms) * 1e3,
+                bound_by="bytes" if bytes_ms >= max(ops_ms, exp_ms)
+                else "operations",
+                ops_bound_ms=ops_ms * 1e3, exp_bound_ms=exp_ms * 1e3,
+                bytes_bound_ms=bytes_ms * 1e3,
+                fma_bound_ms=flops / PEAK_FLOPS["float32"] * 1e3)
+
+
 def attention_inputs(bh, nq, nk, d, dtype, seed, device):
     import torch
 
@@ -213,11 +268,12 @@ def _excess(got, ref, tol, scale=None):
     return float((err - tol * ref.abs()).max()) / max(scale, 1e-30)
 
 
-def phase_attention(train_n):
+def phase_attention(train_n, protocol_n):
     """K1 (with lse) and the backward kernels against the plain versions.
 
     Returns the numbers of the kernels line: K1 at the inference shape in
-    bf16, the backward kernels at the training shape in fp32."""
+    bf16 and at the training and protocol shapes in fp32, the backward
+    kernels at the training shape."""
     import torch
     import torch.nn.functional as F
 
@@ -229,16 +285,19 @@ def phase_attention(train_n):
     log("== phase 3: attention kernels vs plain versions")
     infer_shape = (64, 1872, 1872, 32)   # 8 clouds x 8 heads, coarse level
     train_shape = (32, train_n, train_n, 32)   # 4 clouds x 8 heads
+    # the test protocol: 2 clouds x 8 heads at the model's largest bucket
+    protocol_shape = (16, protocol_n, protocol_n, 32)
     result = {}
-    for shape in [infer_shape, train_shape, (8, 1000, 1313, 16),
-                  (5, 777, 2049, 64), (3, 65, 7, 32), (2, 17, 9, 16),
-                  (4, 2241, 130, 32)]:
+    for shape in [infer_shape, train_shape, protocol_shape,
+                  (8, 1000, 1313, 16), (5, 777, 2049, 64), (3, 65, 7, 32),
+                  (2, 17, 9, 16), (4, 2241, 130, 32)]:
         for name in ("bfloat16", "float32"):
             dtype = getattr(torch, name)
             bh, nq, nk, d = shape
             q, k, v, bias, do = attention_inputs(*shape, dtype, 1, DEVICE)
             scale = d ** -0.5
             out = flash_masked_attention(q, k, v, bias, scale)
+            again = flash_masked_attention(q, k, v, bias, scale)
             out2, lse = _fwd(q, k, v, bias, scale, True)
             ref, ref_lse = flash_masked_attention_reference(
                 q, k, v, bias, scale, return_lse=True)
@@ -250,8 +309,9 @@ def phase_attention(train_n):
                 f"{TOL_LSE:g} abs + 1e-6 rel)")
             check(out.dtype == dtype and out.shape == q.shape,
                   f"{shape} {name} dtype/shape")
-            check(torch.equal(out, out2), f"{shape} {name} the lse run "
-                  "gives the same output")
+            check(torch.equal(out, again) and torch.equal(out, out2),
+                  f"{shape} {name} forward bitwise equal over two launches "
+                  "and the lse launch")
             check(bool(torch.isfinite(out[0].float()).all())
                   and bool(torch.isfinite(lse).all()),
                   f"{shape} {name} fully masked row and lse finite")
@@ -288,6 +348,9 @@ def phase_attention(train_n):
                       f"{shape} {name} {gname} within tolerance (max abs "
                       f"err {errs[gname]:.3e}, largest |grad| "
                       f"{scale_r:.3e})")
+            if (shape, name) == (protocol_shape, "float32"):
+                result[(shape, name)] = {"fwd": _time_forward(
+                    shape, name, q, k, v, bias, scale, err, F)}
             if (shape, name) not in ((infer_shape, "bfloat16"),
                                      (train_shape, "float32"),
                                      (train_shape, "bfloat16")):
@@ -305,7 +368,7 @@ def _fp64_errors(q, k, v, bias, do, scale, kernel, plain):
     """max |err| / max |grad| of the kernels' and the plain version's fp32
     gradients against an fp64 backward, on the slices with a valid key (in
     the fully masked one fp32 rounds the scores into the -1e9 bias)."""
-    from attention_bwd_variants import fp64_backward
+    from kernel_variants import fp64_backward
 
     truth = fp64_backward(*(x[1:] for x in (q, k, v, bias, do)), scale)
     found = {}
@@ -319,43 +382,65 @@ def _fp64_errors(q, k, v, bias, do, scale, kernel, plain):
     return found
 
 
+def _time_forward(shape, name, q, k, v, bias, scale, fwd_err, F):
+    """K1's time beside its bounds, its plain version and SDPA."""
+    from regtr_tpu_torch.ops.attention import (
+        _fwd, flash_masked_attention_reference)
+
+    bh, nq, nk, d = shape
+    ms = cuda_ms(lambda: _fwd(q, k, v, bias, scale, False))
+    plain_ms = cuda_ms(lambda: flash_masked_attention_reference(
+        q, k, v, bias, scale))
+    # the library yardstick: one SDPA call with the additive bias as its mask
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=bias[:, None, :], scale=scale))
+    b = attention_fwd_bounds(shape, name)
+    rate = "bf16 mma" if name == "bfloat16" else "3xTF32"
+    log(f"  {shape} {name}: forward kernel {ms:.4f} ms, "
+        f"{4 * bh * nq * nk * d / ms / 1e9:.2f} TFLOP/s; bound "
+        f"{b['bound_ms']:.4f} ms ({b['bound_by']}; {b['bound_ms'] / ms * 100:.1f}"
+        f" % of it): exponentials {b['exp_bound_ms']:.4f} (MUFU only, at "
+        f"{SM_CLOCK_HZ / 1e6:.0f} MHz), products {b['ops_bound_ms']:.4f} "
+        f"({rate}; {b['ops_bound_ms'] / ms * 100:.1f} % of it), bytes "
+        f"{b['bytes_bound_ms']:.4f}; FMA bound {b['fma_bound_ms']:.4f}; "
+        f"plain {plain_ms:.4f}, SDPA {lib_ms:.4f} ms (medians of 30, CUDA "
+        f"events)")
+    return dict(max_abs_err=fwd_err, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=b["bound_ms"],
+                bound_by=b["bound_by"], exp_bound_ms=b["exp_bound_ms"],
+                fma_bound_ms=b["fma_bound_ms"])
+
+
 def _time_attention(shape, name, q, k, v, bias, do, out, lse, delta, scale,
                     errs, fwd_err, F):
     import torch
 
     from regtr_tpu_torch.ops.attention import (
-        _fwd, flash_attn_bwd_dkv, flash_attn_bwd_dq,
-        flash_masked_attention_bwd_reference,
-        flash_masked_attention_reference)
+        flash_attn_bwd_dkv, flash_attn_bwd_dq,
+        flash_masked_attention_bwd_reference)
 
     bh, nq, nk, d = shape
     width = 2 if name == "bfloat16" else 4
-    fwd_ms = cuda_ms(lambda: _fwd(q, k, v, bias, scale, False))
-    plain_fwd_ms = cuda_ms(lambda: flash_masked_attention_reference(
-        q, k, v, bias, scale))
+    fwd = _time_forward(shape, name, q, k, v, bias, scale, fwd_err, F)
     dkv_ms = cuda_ms(lambda: flash_attn_bwd_dkv(q, k, v, bias, do, lse,
                                                 delta, scale, True))
     dq_ms = cuda_ms(lambda: flash_attn_bwd_dq(q, k, v, bias, do, lse, delta,
                                               scale))
     plain_bwd_ms = cuda_ms(lambda: flash_masked_attention_bwd_reference(
         q, k, v, bias, out, lse, do, scale))
-    # the library yardstick: one SDPA call with the additive bias as its
-    # mask, forward, and forward + backward (dq, dk, dv)
+    # the library yardstick: SDPA forward + backward (dq, dk, dv) with the
+    # additive bias as its mask, less its forward
     mask4 = bias[:, None, :]
     qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
-    lib_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask4, scale=scale))
 
     def sdpa_fwd_bwd():
         o = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask4,
                                            scale=scale)
         torch.autograd.grad(o, (qs, ks, vs), do)
 
-    lib_bwd_ms = cuda_ms(sdpa_fwd_bwd) - lib_fwd_ms
+    lib_bwd_ms = cuda_ms(sdpa_fwd_bwd) - fwd["library_ms"]
     n2d = bh * nq * nk * d
     rows = bh * (nq + nk)
-    # the forward reads q, k, v, bias and writes out
-    fwd_bound = bound(4 * n2d, 2 * rows * d * width + bh * nk * 4, name)
     # dkv reads q, k, v, dO, bias, lse, delta; writes dk, dv, dbias.  The
     # fp32 backward runs 3xTF32 on the tensor cores: its bound is at that
     # rate, with the CUDA cores' FMA bound (the yardstick of an FMA design)
@@ -369,10 +454,7 @@ def _time_attention(shape, name, q, k, v, bias, do, out, lse, delta, scale,
     dq_bound = bound(6 * n2d, dq_bytes, bwd_rate)
     dkv_fma = bound(8 * n2d, dkv_bytes, "float32")
     dq_fma = bound(6 * n2d, dq_bytes, "float32")
-    log(f"  {shape} {name}: forward kernel {fwd_ms:.4f} ms (bound "
-        f"{fwd_bound[0]:.4f}, {fwd_bound[1]}), plain {plain_fwd_ms:.4f}, "
-        f"SDPA {lib_fwd_ms:.4f} ({4 * n2d / fwd_ms / 1e9:.2f} TFLOP/s); "
-        f"backward plain {plain_bwd_ms:.4f}, SDPA backward "
+    log(f"  {shape} {name}: backward plain {plain_bwd_ms:.4f}, SDPA backward "
         f"{lib_bwd_ms:.4f} ms (medians of 30, CUDA events)")
     for what, ms, flops, bnd, fma in (("dkv", dkv_ms, 8 * n2d, dkv_bound,
                                        dkv_fma),
@@ -385,9 +467,7 @@ def _time_attention(shape, name, q, k, v, bias, do, out, lse, delta, scale,
             f"bound {fma[0]:.4f} ms at 67 TFLOP/s ({fma[0] / ms * 100:.1f} "
             f"% of it)")
     return {
-        "fwd": {"max_abs_err": fwd_err, "ms": fwd_ms,
-                "plain_ms": plain_fwd_ms, "bound_ms": fwd_bound[0],
-                "bound_by": fwd_bound[1], "library_ms": lib_fwd_ms},
+        "fwd": fwd,
         "dkv": {"max_abs_err": max(errs["dk"], errs["dv"], errs["dbias"]),
                 "ms": dkv_ms, "plain_ms": plain_bwd_ms,
                 "bound_ms": dkv_bound[0], "bound_by": dkv_bound[1],
@@ -470,30 +550,65 @@ def phase_gather(train_n0):
                                     row_gather_reference(shifted, ids)))
             check(same, f"row gather 70001 x {c} {dtype} (aligned and "
                   "offset table) bitwise equal to index_select")
+    def element_case(shape, axis, dtype, what="", offset=0, batch_pad=0):
+        """src of `shape` (3-D: a batch stride `batch_pad` rows larger than
+        its slice), `offset` elements past an allocation's start; idx at
+        the same offset."""
+        lead, rows, cols = (1, *shape) if len(shape) == 2 else shape
+        full = torch.randn(lead * (rows + batch_pad) * cols + offset,
+                           generator=gen).to(DEVICE, dtype)
+        src = full[offset:].view(lead, rows + batch_pad, cols)[:, :rows]
+        n_idx = (rows, cols)[axis]
+        flat = torch.randint(0, n_idx, (lead * rows * cols + offset,),
+                             generator=gen).to(DEVICE)
+        idx = flat[offset:].view(lead, rows, cols)
+        if len(shape) == 2:
+            src, idx = src[0], idx[0]
+        got = element_gather(src, idx, axis)
+        ref = element_gather_reference(src, idx, axis)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref), f"element gather {shape} axis {axis} "
+              f"{dtype}{what} bitwise equal to torch.gather")
+        return src, idx, got, ref
+
     for shape, axis, dtype in (((5120, 32), 0, torch.float32),
                                ((5120, 32), 1, torch.float32),
                                ((5120, 32), 0, torch.bfloat16),
                                ((5120, 32), 1, torch.bfloat16),
                                ((160, 5120, 32), 0, torch.bfloat16),
-                               ((160, 32, 5120), 1, torch.float32)):
-        src = torch.randn(*shape, generator=gen).to(DEVICE, dtype)
-        idx = torch.randint(0, shape[len(shape) - 2 + axis], shape,
-                            generator=gen).to(DEVICE)
-        got = element_gather(src, idx, axis)
-        ref = element_gather_reference(src, idx, axis)
-        torch.cuda.synchronize()
-        err = float((got.float() - ref.float()).abs().max())
-        check(torch.equal(got, ref), f"element gather {shape} axis {axis} "
-              f"{dtype} bitwise equal to torch.gather")
+                               ((4, 8, 20000), 1, torch.float32),
+                               ((2, 3, 70000), 1, torch.float32),
+                               ((2, 3, 120000), 1, torch.bfloat16)):
+        element_case(shape, axis, dtype, " (rows of "
+                     f"{shape[-1] * (4 if dtype == torch.float32 else 2)} "
+                     "bytes)" if axis == 1 else "")
+    for axis in (0, 1):
+        for dtype in (torch.float32, torch.bfloat16):
+            element_case((6, 40, 3001), axis, dtype,
+                         ", batch stride 7 rows larger than its slice, "
+                         "src and idx 1 element off 16 bytes", offset=1,
+                         batch_pad=7)
     # the batched probe at one level-0 cloud's tiles, timed
-    ms = cuda_ms(lambda: element_gather(src, idx, axis))
+    shape, axis = (160, 32, 5120), 1
+    src, idx, got, ref = element_case(shape, axis, torch.float32)
+    err = float((got.float() - ref.float()).abs().max())
+    # kernel and torch.gather in turns (kernel, library, library, kernel):
+    # the two are close, and a card's memory rate drifts between calls
+    turns = [cuda_ms(lambda: element_gather(src, idx, axis)),
+             cuda_ms(lambda: torch.gather(src, 2, idx)),
+             cuda_ms(lambda: torch.gather(src, 2, idx)),
+             cuda_ms(lambda: element_gather(src, idx, axis))]
+    ms, lib_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
     plain_ms = cuda_ms(lambda: element_gather_reference(src, idx, axis))
-    lib_ms = cuda_ms(lambda: torch.gather(src, 2, idx))
+    # reads each source row, each index once; writes each output once
     bnd = bound(0, src.numel() * 4 + idx.numel() * 8 + got.numel() * 4,
                 "float32")
     log(f"  element gather {shape} axis {axis} fp32: kernel {ms:.4f} ms "
-        f"(bound {bnd[0]:.4f}, {bnd[1]}), plain {plain_ms:.4f}, "
-        f"torch.gather {lib_ms:.4f} ms (medians of 30, CUDA events)")
+        f"(bound {bnd[0]:.4f}, {bnd[1]}; {bnd[0] / ms * 100:.1f} % of it), "
+        f"plain {plain_ms:.4f}, torch.gather {lib_ms:.4f} ms "
+        f"({lib_ms / ms:.2f}x the kernel's time; turns kernel "
+        f"{turns[0]:.4f} / {turns[3]:.4f}, torch.gather {turns[1]:.4f} / "
+        f"{turns[2]:.4f}; medians of 30, CUDA events)")
     return rows_result, dict(shape=list(shape), axis=axis, dtype="float32",
                              max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=bnd[0], bound_by=bnd[1],
@@ -1518,9 +1633,11 @@ def main():
     cfg = threedmatch_config()
     train_n0 = pick_bucket(N_POINTS, cfg["buckets"])
     train_n = make_pyramid_spec(cfg, train_n0).capacities[-1]
+    # the protocol builds the model at the largest bucket
+    protocol_n = make_pyramid_spec(cfg, max(cfg["buckets"])).capacities[-1]
     phase_device()
     phase_build()
-    attn = phase_attention(train_n)
+    attn = phase_attention(train_n, protocol_n)
     gather_rows, gather_elements = phase_gather(train_n0)
     phase_small_input()
     infer_launches, forwards = phase_main_path()
@@ -1528,6 +1645,11 @@ def main():
     protocol = phase_protocol()
     k1 = attn[((64, 1872, 1872, 32), "bfloat16")]
     bwd = attn[((32, train_n, train_n, 32), "float32")]
+    k1_other = [dict(what=what, shape=list(shape), dtype="float32",
+                     **attn[(shape, "float32")]["fwd"])
+                for what, shape in (
+                    ("training", (32, train_n, train_n, 32)),
+                    ("protocol", (16, protocol_n, protocol_n, 32)))]
     fp64 = bwd.pop("fp64")
     segsum_shape = [segsum.pop("rows"), segsum.pop("width")]
     row = dict(gather_rows[0])
@@ -1544,7 +1666,8 @@ def main():
              steps=TRAIN_STEPS, protocol_launches={
                  bm: r["launches"]["flash_attn_fwd"]
                  for bm, r in protocol.items()},
-             shape=[64, 1872, 1872, 32], dtype="bfloat16", **k1["fwd"]),
+             shape=[64, 1872, 1872, 32], dtype="bfloat16",
+             other_shapes=k1_other, **k1["fwd"]),
         dict(name="flash_attn_bwd_dkv", row="K2", route="cuda",
              source=src + "flash_attn_bwd.cu",
              replaces="regtr_tpu/ops/pallas/attention.py:194",

@@ -39,7 +39,7 @@
 //    max |grad| against an fp64 backward: dq 2.6e-6, dk 2.4e-6, dv 2.2e-6,
 //    dbias 1.2e-6, where the fp32 plain version gives 2.2e-6, 2.5e-6,
 //    1.5e-6 and 7.4e-7; with the sums left in the tensor cores dq errs by
-//    2.6e-5 (attention_bwd_variants.py).
+//    2.6e-5 (kernel_variants.py).
 //  * A block owns 64 rows, 16 per warp: keys (dkv) or queries (dq).  Those
 //    rows (k and v, or q and dout) are loaded once into registers as A
 //    fragments, split once for fp32.  The other side (q, dout, lse, delta,
@@ -66,7 +66,7 @@
 //    registers a thread: three blocks per SM, so the training shape's 1120
 //    blocks run in 2.8 waves.  (fp32 dkv spills ~100 bytes a thread there;
 //    with two blocks per SM and no spills it ran no faster.)
-// What limits it now (attention_bwd_variants.py on an H100): the rate of
+// What limits it now (kernel_variants.py on an H100): the rate of
 // the mma.sync TF32 instructions.  With one TF32 product in place of three
 // the fp32 dkv takes ~0.54 ms instead of ~0.91, i.e. ~0.19 ms per pass,
 // ~215 TFLOP/s of TF32; halving the shared-memory reads changes nothing,
@@ -81,6 +81,8 @@
 
 #include <type_traits>
 
+#include "sm90_ptx.cuh"
+
 namespace {
 
 constexpr int kWarps = 4;
@@ -88,148 +90,6 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kRows = 16 * kWarps;  // rows a block owns, 16 per warp
 constexpr int kCols = 64;           // rows of the other side per tile
 constexpr int kChunk = 16;          // columns a warp takes at a time
-
-// ------------------------------------------------------------------ PTX ---
-
-// cvt.rna.tf32.f32's rounding (to nearest, ties away from zero: add half of
-// the 13 dropped bits to the magnitude, then clear them), done with integer
-// ops: the same bits, and 5-7 % faster here than the conversion instruction.
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = big + small, both TF32 (fp32 bit patterns with the low 13 bits 0).
-__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
-  big = tf32_rna(x);
-  small = tf32_rna(x - __uint_as_float(big));
-}
-
-// D(16x8, fp32) += A(16x8, tf32, row) * B(8x8, tf32, col).  Fragments
-// (g = lane / 4, t = lane % 4): a0 = A[g][t], a1 = A[g+8][t], a2 = A[g][t+4],
-// a3 = A[g+8][t+4]; b0 = B[t][g], b1 = B[t+4][g]; c0, c1 = C[g][2t, 2t+1],
-// c2, c3 = C[g+8][2t, 2t+1].
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a * b in 3xTF32, the small terms first.
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
-                                           const uint32_t (&a_big)[4],
-                                           const uint32_t (&a_small)[4],
-                                           float b0_big, float b1_big,
-                                           float b0_small, float b1_small) {
-  mma_tf32(c, a_small, __float_as_uint(b0_big), __float_as_uint(b1_big));
-  mma_tf32(c, a_big, __float_as_uint(b0_small), __float_as_uint(b1_small));
-  mma_tf32(c, a_big, __float_as_uint(b0_big), __float_as_uint(b1_big));
-}
-
-// acc += a * b in 3xTF32 with the sum into acc rounded to nearest.  The
-// tensor cores truncate each accumulation; over a long contraction (a
-// gradient sums all Nq or Nk columns) the truncations add up with one sign,
-// to ~2e-5 of the result at N = 2240 on an H100.  So each 8-column step
-// sums into a fresh register, which is added to acc on the CUDA cores.
-__device__ __forceinline__ void mma_3xtf32_rn(float (&acc)[4],
-                                              const uint32_t (&a_big)[4],
-                                              const uint32_t (&a_small)[4],
-                                              float b0_big, float b1_big,
-                                              float b0_small, float b1_small) {
-  float c[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_3xtf32(c, a_big, a_small, b0_big, b1_big, b0_small, b1_small);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) acc[i] += c[i];
-}
-
-// D(16x8, fp32) += A(16x16, bf16, row) * B(16x8, bf16, col): a0 =
-// A[g][2t..2t+1], a1 = A[g+8][2t..], a2 = A[g][2t+8..], a3 = A[g+8][2t+8..];
-// b0 = B[2t..2t+1][g], b1 = B[2t+8..2t+9][g]; C as for TF32.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x = lo
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Two 8x8 bf16 matrices whose rows the lanes 0-7 and 8-15 point at: r0
-// from the first, r1 from the second, lane (g, t) holding row g, columns
-// 2t and 2t + 1 of each (with .trans: rows 2t and 2t + 1 of column g).
-__device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1,
-                                        const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t& r0, uint32_t& r1,
-                                              const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r0), "=r"(r1)
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-// Asynchronous copies to shared memory; with `in` false they read nothing
-// and write zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(in ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool in) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(in ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void load_vec(float (&dst)[N], const float* src) {
-  static_assert(N % 2 == 0, "whole float2s");
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < N / 4; ++i) {
-      const float4 x = reinterpret_cast<const float4*>(src)[i];
-      dst[4 * i] = x.x;
-      dst[4 * i + 1] = x.y;
-      dst[4 * i + 2] = x.z;
-      dst[4 * i + 3] = x.w;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < N / 2; ++i) {
-      const float2 x = reinterpret_cast<const float2*>(src)[i];
-      dst[2 * i] = x.x;
-      dst[2 * i + 1] = x.y;
-    }
-  }
-}
 
 // ------------------------------------------------------------- layout ---
 
@@ -278,27 +138,8 @@ __device__ __forceinline__ void stage_scalars(float* dst, const float* lse,
 template <typename T, int D>
 __device__ __forceinline__ void stage_rows(T* dst, const T* src, int c0,
                                            int valid, bool vec16, int tid) {
-  constexpr int kStride = Smem<T, D>::kStride;
-  constexpr int kRowBytes = D * (int)sizeof(T);
-  const char* from = reinterpret_cast<const char*>(src + (size_t)c0 * D);
-  char* to = reinterpret_cast<char*>(dst);
-  if (vec16) {
-    constexpr int kVecs = kRowBytes / 16;
-    for (int i = tid; i < kCols * kVecs; i += kThreads) {
-      const int r = i / kVecs, c = 16 * (i % kVecs);
-      const bool in = r < valid;
-      cp_async16(to + r * kStride * (int)sizeof(T) + c,
-                 in ? from + (size_t)r * kRowBytes + c : from, in);
-    }
-  } else {  // a base pointer off 16 bytes: 4-byte copies
-    constexpr int kVecs = kRowBytes / 4;
-    for (int i = tid; i < kCols * kVecs; i += kThreads) {
-      const int r = i / kVecs, c = 4 * (i % kVecs);
-      const bool in = r < valid;
-      cp_async4(to + r * kStride * (int)sizeof(T) + c,
-                in ? from + (size_t)r * kRowBytes + c : from, in);
-    }
-  }
+  cp_async_rows<T, D, Smem<T, D>::kStride, kCols, kThreads>(
+      dst, src + (size_t)c0 * D, valid, vec16, tid);
 }
 
 struct BwdArgs {

@@ -33,9 +33,25 @@
 // thread, so each index is read once and no thread divides.  No shared
 // memory, no atomics: every output element is written by one thread, so
 // the result is the table's bits, bitwise equal to index_select.
+//
+// The element gather moves the int64 indices (8 bytes per output) and the
+// outputs in order, and along axis 1 each source row once: at the probes'
+// shape (160, 32, 5120) fp32 that is 420 MB, 0.125 ms at 3.35 TB/s.  The
+// TPU probe (exp_pallas_gather5.py k3) gathers each window from VMEM; here
+// each source row goes through shared memory, Hopper's counterpart (see
+// element_gather_kernel).  Copies of bits again: bitwise torch.gather.
+// Measured on an H100 (chip_smoke.py phase 3b, kernel_variants.py
+// --gather): 0.162-0.186 ms at that shape, 67-77 % of the bound, 1.09-1.19x
+// torch.gather's speed in turns; the first design (one thread per element,
+// two divisions each, the source read from device memory at every gathered
+// position) took 0.205-0.226 ms.
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include <algorithm>
+
+#include "sm90_ptx.cuh"
 
 namespace {
 
@@ -103,49 +119,180 @@ int launch_rows(const void* table, const int64_t* idx, void* out,
   return (int)cudaGetLastError();
 }
 
-// One thread per output element; the output and the indices are read and
-// written in order, the source at the gathered positions.
-template <typename T, typename I>
+// The element gather.  One block per output row (b, i) and column chunk:
+// a 2-D grid, so no thread divides.  Each thread takes kVec consecutive
+// outputs (16 bytes: 4 fp32 or 8 bf16) at a time, kUnroll such vectors per
+// batch: their indices as 16-byte loads of two int64 each (all of a batch's
+// loads in flight together), their values gathered, one 16-byte store per
+// vector.  The row's head and tail off those 16 bytes go element by element.
+//   kShared (axis 1 only): the block copies source row (b, i), which every
+//   output of the row reads, into shared memory by cp.async, keeping the
+//   row's offset modulo 16 bytes; the first batch of indices loads while
+//   the row lands; then it gathers from shared memory: the row is read from
+//   device memory once instead of once per output.
+//   Otherwise (axis 0, or a row wider than a block's shared memory) the
+//   values come from device memory.
+struct ElementArgs {
+  const void* src;
+  const int64_t* idx;
+  void* out;
+  long long rows, cols, src_cols;
+  long long src_bstride, idx_bstride, out_bstride;  // in elements
+};
+
+constexpr int kUnroll = 4;  // vectors per batch
+
+template <typename T>
+struct Vec16 {
+  static constexpr int kVec = 16 / sizeof(T);
+};
+
+template <typename T, int kAxis, bool kShared>
 __global__ void __launch_bounds__(kThreads)
-    element_gather_kernel(const T* __restrict__ src,
-                          const int64_t* __restrict__ idx,
-                          T* __restrict__ out, I total, I rows, I cols,
-                          int64_t src_cols, int axis, int64_t src_bstride,
-                          int64_t idx_bstride, int64_t out_bstride) {
-  const I per_batch = rows * cols;
-  const I step = (I)gridDim.x * kThreads;
-  for (I t = (I)blockIdx.x * kThreads + threadIdx.x; t < total; t += step) {
-    const I b = t / per_batch;
-    const I e = t - b * per_batch;
-    const I i = e / cols;
-    const I j = e - i * cols;
-    const int64_t k = idx[b * idx_bstride + e];
-    const int64_t at = axis == 0 ? k * src_cols + j : i * src_cols + k;
-    out[b * out_bstride + e] = src[b * src_bstride + at];
+    element_gather_kernel(const ElementArgs a, int chunk) {
+  constexpr int kVec = Vec16<T>::kVec;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const long long b = blockIdx.x / a.rows;  // once per block
+  const long long i = blockIdx.x - b * a.rows;
+  const T* src = static_cast<const T*>(a.src) + b * a.src_bstride;
+  const int64_t* idx = a.idx + b * a.idx_bstride + i * a.cols;
+  T* out = static_cast<T*>(a.out) + b * a.out_bstride + i * a.cols;
+
+  const long long j0 = (long long)blockIdx.y * chunk;
+  const long long j1 = min(a.cols, j0 + chunk);
+  // Outputs [j0, head) up to the first 16-byte boundary of out, and
+  // [body_end, j1) after the last whole vector, go one by one.
+  const long long to16 =
+      ((16 - (reinterpret_cast<uintptr_t>(out + j0) & 15)) & 15) / sizeof(T);
+  const long long head = min(j1, j0 + to16);
+  const long long body_end = head + (j1 - head) / kVec * kVec;
+  // Index vectors need idx[head] on 16 bytes; else 8-byte loads.
+  const bool idx16 = (reinterpret_cast<uintptr_t>(idx + head) & 15) == 0;
+  const long long step = (long long)blockDim.x * kVec;
+
+  int64_t k[kUnroll][kVec];
+  auto load_batch = [&](long long j) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long jj = j + u * step;
+      if (jj >= body_end) continue;
+      if (idx16) {
+#pragma unroll
+        for (int w = 0; w < kVec / 2; ++w) {
+          const longlong2 kk =
+              __ldcs(reinterpret_cast<const longlong2*>(idx + jj) + w);
+          k[u][2 * w] = kk.x;
+          k[u][2 * w + 1] = kk.y;
+        }
+      } else {
+#pragma unroll
+        for (int w = 0; w < kVec; ++w)
+          k[u][w] = __ldcs(reinterpret_cast<const long long*>(idx + jj + w));
+      }
+    }
+  };
+
+  // Source row i (axis 1) or the whole (src_rows, src_cols) slice (axis 0):
+  // the value of index k in column j is row[k] or row[k * src_cols + j].
+  const T* row = kAxis == 1 ? src + i * a.src_cols : src;
+  long long j = head + (long long)threadIdx.x * kVec;
+  if constexpr (kShared) {
+    // The row's bytes at the same offset modulo 16 in shared memory.
+    const uintptr_t start = reinterpret_cast<uintptr_t>(row);
+    const uintptr_t first = start & ~uintptr_t(15);
+    const uintptr_t end = start + a.src_cols * sizeof(T);
+    const long long n16 = (long long)((end + 15 - first) >> 4);
+    for (long long v = threadIdx.x; v < n16; v += blockDim.x) {
+      const uintptr_t at = first + 16 * v;
+      if (at >= start && at + 16 <= end) {
+        cp_async16(smem + 16 * v, reinterpret_cast<const void*>(at), true);
+      } else {  // the 16-byte words that hold the row's head or tail
+        for (int e = 0; e < 16; e += (int)sizeof(T))
+          if (at + e >= start && at + e < end)
+            *reinterpret_cast<T*>(smem + 16 * v + e) =
+                *reinterpret_cast<const T*>(at + e);
+      }
+    }
+    cp_async_commit();
+    load_batch(j);
+    cp_async_wait_all();
+    __syncthreads();
+    row = reinterpret_cast<const T*>(smem + (start - first));
+  } else {
+    load_batch(j);
   }
+  auto value = [&](int64_t kk, long long jj) -> T {
+    return kAxis == 1 ? row[kk] : row[kk * a.src_cols + jj];
+  };
+
+  for (; j < body_end; j += kUnroll * step) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long jj = j + u * step;
+      if (jj >= body_end) continue;
+      union {
+        uint4 v;
+        T e[kVec];
+      } pack;
+#pragma unroll
+      for (int w = 0; w < kVec; ++w) pack.e[w] = value(k[u][w], jj + w);
+      __stcs(reinterpret_cast<uint4*>(out + jj), pack.v);
+    }
+    load_batch(j + kUnroll * step);
+  }
+  for (long long jj = j0 + threadIdx.x; jj < head; jj += blockDim.x)
+    out[jj] = value(idx[jj], jj);
+  for (long long jj = body_end + threadIdx.x; jj < j1; jj += blockDim.x)
+    out[jj] = value(idx[jj], jj);
+}
+
+int max_shared_bytes() {
+  static int bytes = -1;
+  if (bytes < 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev) != cudaSuccess)
+      bytes = 48 * 1024;
+  }
+  return bytes;
+}
+
+template <typename T, int kAxis, bool kShared>
+int launch_elements_as(const ElementArgs& a, long long batch,
+                       size_t smem_bytes, cudaStream_t s) {
+  constexpr int kVec = Vec16<T>::kVec;
+  auto kernel = element_gather_kernel<T, kAxis, kShared>;
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  // kShared: one block per row reads the row once; else chunks of at most
+  // kThreads vectors, so that a wide row spreads over several blocks.
+  const long long chunk =
+      kShared ? a.cols : (long long)kThreads * kVec * kUnroll;
+  const long long chunks = (a.cols + chunk - 1) / chunk;
+  // As many threads as the row has vectors, in whole warps, up to kThreads.
+  long long threads = (std::min(a.cols, chunk) + kVec - 1) / kVec;
+  threads = std::min((long long)kThreads, (threads + 31) / 32 * 32);
+  const long long blocks = batch * a.rows;
+  if (blocks >= (1LL << 31) || chunks > 65535 || chunk > INT32_MAX)
+    return (int)cudaErrorInvalidConfiguration;
+  kernel<<<dim3((unsigned)blocks, (unsigned)chunks), (unsigned)threads,
+           smem_bytes, s>>>(a, (int)chunk);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_elements(const void* src, const int64_t* idx, void* out,
-                    long long batch, long long rows, long long cols,
-                    long long src_cols, int axis, long long src_bstride,
-                    long long idx_bstride, long long out_bstride,
+int launch_elements(const ElementArgs& a, long long batch, int axis,
                     cudaStream_t s) {
-  const long long total = batch * rows * cols;
-  long long blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  const T* in = static_cast<const T*>(src);
-  T* o = static_cast<T*>(out);
-  if (total < (1LL << 31)) {
-    element_gather_kernel<T, uint32_t><<<(unsigned)blocks, kThreads, 0, s>>>(
-        in, idx, o, (uint32_t)total, (uint32_t)rows, (uint32_t)cols,
-        src_cols, axis, src_bstride, idx_bstride, out_bstride);
-  } else {
-    element_gather_kernel<T, int64_t><<<(unsigned)blocks, kThreads, 0, s>>>(
-        in, idx, o, (int64_t)total, (int64_t)rows, (int64_t)cols, src_cols,
-        axis, src_bstride, idx_bstride, out_bstride);
-  }
-  return (int)cudaGetLastError();
+  if (axis == 0) return launch_elements_as<T, 0, false>(a, batch, 0, s);
+  // The source row in shared memory, with up to 16 bytes of alignment slack.
+  const size_t row_bytes = (size_t)a.src_cols * sizeof(T) + 32;
+  if (row_bytes <= (size_t)max_shared_bytes())
+    return launch_elements_as<T, 1, true>(a, batch, row_bytes, s);
+  return launch_elements_as<T, 1, false>(a, batch, 0, s);
 }
 
 bool aligned(const void* p, size_t n) {
@@ -198,15 +345,10 @@ int regtr_element_gather(const void* src, const void* idx, void* out,
       (axis != 0 && axis != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t* ix = static_cast<const int64_t*>(idx);
-  if (elem_bytes == 4)
-    return launch_elements<uint32_t>(src, ix, out, batch, rows, cols,
-                                     src_cols, axis, src_bstride,
-                                     idx_bstride, out_bstride, s);
-  if (elem_bytes == 2)
-    return launch_elements<uint16_t>(src, ix, out, batch, rows, cols,
-                                     src_cols, axis, src_bstride,
-                                     idx_bstride, out_bstride, s);
+  const ElementArgs a{src, static_cast<const int64_t*>(idx), out, rows,
+                      cols, src_cols, src_bstride, idx_bstride, out_bstride};
+  if (elem_bytes == 4) return launch_elements<uint32_t>(a, batch, axis, s);
+  if (elem_bytes == 2) return launch_elements<uint16_t>(a, batch, axis, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -2,8 +2,8 @@
 
 Each source has a plain C interface.  nvcc compiles it for sm_90a at first
 use into `.build/` at the root of the checkout, into a shared library named
-by a hash of its source and flags (a changed source is rebuilt), which is
-loaded with ctypes.  Every C entry point returns the CUDA error of its
+by a hash of its source, the headers beside it (csrc/*.cuh) and the flags
+(a changed source or header is rebuilt), which is loaded with ctypes.  Every C entry point returns the CUDA error of its
 launch; `check` turns a non-zero one into an exception.  `build_all`
 starts one nvcc per source at once, so a cold start waits for the slowest
 source only.
@@ -49,10 +49,13 @@ class CudaLibrary:
         self._declare = declare
 
     def path(self) -> Path:
-        """Where the built library lives (named by source + flags)."""
-        tag = hashlib.sha256(self.source.read_bytes()
-                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        return BUILD_DIR / f"{self.source.stem}_{tag}.so"
+        """Where the built library lives: named by a hash of the source,
+        every header in its directory and the flags."""
+        digest = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(self.source.parent.glob("*.cuh")):
+            digest.update(header.name.encode() + header.read_bytes())
+        digest.update(" ".join(NVCC_FLAGS).encode())
+        return BUILD_DIR / f"{self.source.stem}_{digest.hexdigest()[:16]}.so"
 
     def _start(self):
         """Start nvcc if the library is missing: (process, temp path) or

@@ -144,3 +144,121 @@ def test_cross_encoder_layer_matches_jax(pre_norm, activation, val_pos):
     # fp32 throughout (LayerNorm eps 1e-6 on both sides); sums in another
     # order.
     np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------- the CUDA forward's numerics ---
+
+def _fma(a, b, c):
+    """fmaf: a * b + c rounded once to fp32 (the fp64 product of two fp32
+    values is exact)."""
+    return (a.double() * b + c.double()).float()
+
+
+def _emulated_forward(q, k, v, bias, scale, passes, tile=64):
+    """csrc/flash_attn_fwd.cu's arithmetic on the CPU: 64-key tiles, scores
+    in base 2 with scale * log2(e) folded into one FMA and the bias
+    pre-multiplied by log2(e), the running max from -1e30, 2^x for the
+    exponent, lse = (m + log2 l) ln 2.  fp32 operands (passes 3 or 1): both
+    products on the tensor cores as 3xTF32 (or one TF32 pass), p v summed
+    over each tile and added to the fp32 accumulator rescaled by alpha.
+    bf16 operands (passes None): bf16 products summed in fp32, p rounded to
+    bf16 before p v.  Returns (out fp32, lse)."""
+    from tests.test_torch_attention_bwd import _tensor_core_mm
+
+    def mm(a, b):
+        if passes is None:
+            return a.float() @ b.float()
+        return _tensor_core_mm(a, b, passes)
+
+    log2e = torch.tensor(np.log2(np.e), dtype=torch.float32)
+    c = float(torch.tensor(scale, dtype=torch.float32) * log2e)
+    b2 = bias * log2e
+    bh, nq, d = q.shape
+    nk = k.shape[1]
+    m = torch.full((bh, nq, 1), -1e30)
+    l = torch.zeros(bh, nq, 1)
+    acc = torch.zeros(bh, nq, d)
+    for k0 in range(0, nk, tile):
+        kt, vt, bt = k[:, k0:k0 + tile], v[:, k0:k0 + tile], b2[:, k0:k0 + tile]
+        x = _fma(mm(q, kt.transpose(1, 2)), c, bt[:, None, :])
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(x - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        if passes is None:
+            p = p.to(torch.bfloat16)
+        acc = _fma(acc, alpha, mm(p, vt))
+        m = m_new
+    lse = (m + torch.log2(l)) * float(np.log(2.0))
+    return acc / l, lse[..., 0]
+
+
+EMU_SHAPES = [(2, 512, 512, 32), (2, 512, 450, 32)]   # whole and ragged tiles
+
+
+def _emu_inputs(shape):
+    bh, nq, nk, d = shape
+    return [torch.from_numpy(x) for x in _inputs(bh, nq, nk, d, seed=nk,
+                                                masked_row=0)]
+
+
+def _assert_forward_close(out, lse, ref, ref_lse, tol):
+    """Slice 0 has every key masked: its scores round to the bias (in base
+    2 at another step than in base e), so it is held finite only."""
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    np.testing.assert_allclose(out[1:].numpy(), np.asarray(ref, np.float32)[1:],
+                               atol=tol, rtol=tol)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse, np.float32),
+                               atol=1e-4, rtol=1e-6)
+
+
+@pytest.mark.parametrize("shape", EMU_SHAPES)
+def test_kernel_numerics_match_plain_forward(shape):
+    """The fp32 kernel's arithmetic (3xTF32, base 2, per-tile sums) within
+    the card tests' tolerances of the plain forward: out 2e-5 (measured
+    ~1e-7), lse 1e-4 + 1e-6 relative."""
+    q, k, v, bias = _emu_inputs(shape)
+    scale = shape[3] ** -0.5
+    out, lse = _emulated_forward(q, k, v, bias, scale, passes=3)
+    ref, ref_lse = flash_masked_attention_reference(q, k, v, bias, scale,
+                                                    return_lse=True)
+    _assert_forward_close(out, lse, ref, ref_lse, TOL["float32"])
+
+
+@pytest.mark.parametrize("shape", EMU_SHAPES)
+def test_kernel_numerics_match_pallas_kernel(shape):
+    """The same arithmetic against the JAX kernel in interpret mode, out
+    and lse.  With ragged keys the JAX kernel also spreads the masked
+    slice over its zero padding; that slice is held finite only anyway."""
+    q, k, v, bias = _emu_inputs(shape)
+    scale = shape[3] ** -0.5
+    out, lse = _emulated_forward(q, k, v, bias, scale, passes=3)
+    from regtr_tpu.ops.pallas import attention as jax_attention
+
+    ref, ref_lse = jax_attention._flash_fwd_impl(
+        *(jnp.asarray(x.numpy()) for x in (q, k, v, bias)), scale, 128, 128,
+        True)
+    _assert_forward_close(out, lse, ref, np.asarray(ref_lse)[:, :shape[1], 0],
+                          TOL["float32"])
+
+
+def test_one_tf32_pass_fails_the_forward_tolerance():
+    """Plain TF32 products (~1e-3 on the scores) miss fp32's 2e-5 by far:
+    why the kernel has no plain-TF32 path."""
+    q, k, v, bias = _emu_inputs(EMU_SHAPES[0])
+    out, _ = _emulated_forward(q, k, v, bias, 32 ** -0.5, passes=1)
+    ref = flash_masked_attention_reference(q, k, v, bias, 32 ** -0.5)
+    err = (out[1:] - ref[1:]).abs() - TOL["float32"] * ref[1:].abs()
+    assert float(err.max()) > 5 * TOL["float32"]
+
+
+def test_kernel_numerics_bf16_match_plain_forward():
+    """The bf16 kernel's arithmetic (base 2, p rounded to bf16 before p v,
+    unnormalized) within bf16's 2e-2 of the plain forward."""
+    q, k, v, bias = _emu_inputs(EMU_SHAPES[1])
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    out, lse = _emulated_forward(q, k, v, bias, 32 ** -0.5, passes=None)
+    ref, ref_lse = flash_masked_attention_reference(q, k, v, bias, 32 ** -0.5,
+                                                    return_lse=True)
+    _assert_forward_close(out.to(torch.bfloat16).float(), lse, ref.float(),
+                          ref_lse, TOL["bfloat16"])

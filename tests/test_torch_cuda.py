@@ -29,8 +29,10 @@ def cuda():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("bh,nq,nk,d", [
     (64, 1872, 1872, 32),    # the main path's coarse-level attention
+    (16, 2992, 2992, 32),    # the test protocol's (the model at bucket 32768)
     (3, 200, 333, 16),       # ragged key edge, the tiny config's head dim
     (2, 65, 130, 64),        # one query past a tile
+    (2, 17, 9, 16),          # less than one tile each way
     (1, 1, 1, 32),
 ])
 def test_flash_kernel_matches_plain_version(cuda, bh, nq, nk, d, dtype):
@@ -52,6 +54,29 @@ def test_flash_kernel_matches_plain_version(cuda, bh, nq, nk, d, dtype):
     assert torch.isfinite(out[0].float()).all()
     torch.testing.assert_close(out[1:].float(), ref[1:].float(),
                                atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_is_bitwise_repeatable(cuda, dtype):
+    """No atomics and a fixed order of sums: two launches, and a launch
+    that also writes lse, give the same bits."""
+    from regtr_tpu_torch.ops.attention import _fwd
+
+    g = torch.Generator().manual_seed(7)
+    tdt = getattr(torch, dtype)
+    q, k, v = (torch.randn(8, n, 32, generator=g).to(cuda, tdt)
+               for n in (1000, 1313, 1313))
+    mask = torch.rand(8, 1313, generator=g) > 0.2
+    mask[:, 0] = True
+    bias = torch.where(mask, 0.0, NEG_BIAS).float().to(cuda)
+    first = flash_masked_attention(q, k, v, bias, 32 ** -0.5)
+    second = flash_masked_attention(q, k, v, bias, 32 ** -0.5)
+    with_lse, lse = _fwd(q, k, v, bias, 32 ** -0.5, True)
+    again, lse_again = _fwd(q, k, v, bias, 32 ** -0.5, True)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.equal(first, with_lse)
+    assert torch.equal(with_lse, again) and torch.equal(lse, lse_again)
 
 
 @pytest.mark.cuda
@@ -244,6 +269,30 @@ def test_element_gather_kernel_is_torch_gather(cuda, axis, dtype):
     assert element_gather.launches == before + 2
     assert torch.equal(got, element_gather_reference(src, idx, axis))
     assert torch.equal(bgot, element_gather_reference(batched, bidx, axis))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cols", [20000, 130000])
+def test_element_gather_kernel_wide_rows(cuda, cols, dtype):
+    """Axis-1 rows wider than 48 KB take shared memory past the default
+    (20000 fp32: 80 KB); rows wider than a block's shared memory (130000:
+    260 or 520 KB) gather from device memory.  Bitwise torch.gather, with
+    a batch stride larger than the slice and operands off 16 bytes."""
+    from regtr_tpu_torch.ops.gather import (element_gather,
+                                            element_gather_reference)
+
+    g = torch.Generator().manual_seed(cols)
+    tdt = getattr(torch, dtype)
+    flat = torch.randn(3 * 5 * cols + 1, generator=g).to(cuda, tdt)
+    src = flat[1:].view(3, 5, cols)[:, :4]            # batch stride 5 rows
+    idx = torch.randint(0, cols, (3 * 4 * 999 + 1,), generator=g).to(cuda)
+    idx = idx[1:].view(3, 4, 999)
+    before = element_gather.launches
+    got = element_gather(src, idx, 1)
+    torch.cuda.synchronize()
+    assert element_gather.launches == before + 1
+    assert torch.equal(got, element_gather_reference(src, idx, 1))
 
 
 @pytest.mark.cuda
