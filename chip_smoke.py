@@ -21,12 +21,13 @@ non-zero without one, and without the checkout beside it).  Phases:
    and exponentials) and the fp32 kernels beside their 3xTF32 and FMA
    bounds;
 3b. gather kernels (K5) against index_select and torch.gather, bitwise: the
-   row gather at the main path's shapes (the inference feature and
-   coordinate gathers, the training feature gather) and at ragged widths,
-   the element gather on both axes, 2-D and batched (rows wider than 48 KB
-   and than a block's shared memory, a batch stride larger than the slice,
-   operands off 16 bytes); CUDA-event times beside the bound and the
-   library call;
+   row gather at the main path's shapes with its int32 flat ids (the
+   inference feature and coordinate gathers, the training feature gather;
+   the coordinate rows with int64 ids too) and at ragged widths with both
+   id widths, the element gather on both axes, 2-D and batched (rows wider
+   than 48 KB and than a block's shared memory, a batch stride larger than
+   the slice, operands off 16 bytes); CUDA-event times beside the bound and
+   the library call, the row gather in turns with index_select;
 4. small input: the tiny config in fp32 on the card against the same model
    on the CPU (plain versions), same seeded parameters and input: the
    forward, and the gradients of one training step leaf by leaf;
@@ -36,18 +37,25 @@ non-zero without one, and without the checkout beside it).  Phases:
    then the batched forward, timed, with per-stage times, a torch.profiler
    pass (device busy share, top kernels; the trace goes to
    .build/forward_trace.json), checks of the outputs, of the kernels'
-   launch counts, of the pyramid's bitwise repeatability, of the kernel path
+   launch counts (no gather transpose), of the pyramid's bitwise
+   repeatability, of the kernel path
    against a forward whose attention calls the plain version, and of the
    forward with K5 against the forward with index_select (bitwise);
 6. training path: the shipped 3DMatch config (fp32) on 2 pairs of those
    scans with GT poses and overlap labels, collated at the bucket the
-   config picks (24576): the segment-sum kernel against its plain version
-   and index_add_ on the step's level-0 table; the first step's gradients
-   on the kernel path against the plain attention, gather and gather
-   transpose, and bitwise against the same step with index_select in
-   place of K5; 2 warm-up and 20 timed steps (ms/step, pairs/s, peak
-   memory, launch counts, finite losses, a falling loss); a NaN batch that
-   must skip its update; per-stage times; a torch.profiler pass (trace in
+   config picks (24576): the gather transpose on the step's level-0 table
+   (the transpose kernels bitwise against a stable sort, there and on
+   tables with a 6000-row segment, of pad rows only and with empty
+   segments; the segment-sum kernel against itself over the plain
+   transpose, its plain version and index_add_; times in turns beside
+   torch.sort); the first step's gradients on the kernel path against the
+   plain attention, gather and gather transpose, and bitwise against the
+   same step with index_select in place of K5 and with the plain transpose
+   in place of the transpose kernel; 2 warm-up and 20 timed steps
+   (ms/step, pairs/s, peak memory, launch counts: one transpose per
+   distinct neighbor table, finite losses, a falling loss); a NaN batch
+   that must skip its update; per-stage times; a torch.profiler pass (the
+   transpose and segsum kernels by name; trace in
    .build/train_trace.json);
 7. test protocol: a synthetic data root in 3DMatch's on-disk formats under
    .build/protocol (2 scenes of 6 scans of 19k points, GT trajectories for
@@ -129,8 +137,13 @@ def rel_l2(a, b):
     return float((a.float() - b.float()).norm() / b.float().norm())
 
 
-def cuda_ms(fn, iters=30, warmup=5):
-    """Median milliseconds of fn() over `iters` launches (CUDA events)."""
+def cuda_ms(fn, iters=30, warmup=5, reps=1):
+    """Median milliseconds per call of fn() over `iters` runs of `reps`
+    calls, each run between two CUDA events.  With reps=1 (every `ms` of
+    the kernels line) a run is one launch: the host's latency from the
+    first event to the launch is in it.  With reps > 1 (`back_to_back_ms`)
+    the host queues a run's calls while the device works through them, so
+    the time per call is nearer the device's alone."""
     import torch
 
     for _ in range(warmup):
@@ -140,10 +153,11 @@ def cuda_ms(fn, iters=30, warmup=5):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -495,6 +509,60 @@ def neighbor_like_ids(gen, clouds, n, k):
     return ids.reshape(-1).to(DEVICE)
 
 
+def _time_row_gather(table, ids, what):
+    """K5a bitwise against index_select on one table and ids, and timed in
+    turns with it (kernel, index_select, index_select, kernel: the two are
+    close on the narrow rows, and a card's memory rate drifts between
+    calls), as single launches and in runs of 10 back-to-back calls,
+    beside the bound of the bytes it moves."""
+    import torch
+
+    from regtr_tpu_torch.ops.gather import row_gather, row_gather_reference
+
+    got = row_gather(table, ids)
+    ref = row_gather_reference(table, ids)
+    torch.cuda.synchronize()
+    err = float((got.float() - ref.float()).abs().max())
+    width = str(ids.dtype)[6:]
+    check(torch.equal(got, ref), f"row gather {what} ({ids.shape[0]} rows x "
+          f"{table.shape[1]} {table.dtype}, {width} ids) bitwise equal to "
+          "index_select")
+    def in_turns(reps):
+        return [cuda_ms(lambda: row_gather(table, ids), reps=reps),
+                cuda_ms(lambda: torch.index_select(table, 0, ids), reps=reps),
+                cuda_ms(lambda: torch.index_select(table, 0, ids), reps=reps),
+                cuda_ms(lambda: row_gather(table, ids), reps=reps)]
+
+    turns, b2b = in_turns(1), in_turns(10)
+    ms, lib_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    b2b_ms, b2b_lib_ms = (b2b[0] + b2b[3]) / 2, (b2b[1] + b2b[2]) / 2
+    plain_ms = cuda_ms(lambda: row_gather_reference(table, ids))
+    item = table.element_size()
+    # reads the table and the ids (at their width), writes the rows; no
+    # arithmetic
+    bnd = bound(0, table.numel() * item + ids.numel() * ids.element_size()
+                + got.numel() * item, "float32")
+    log(f"  row gather {what}, {width} ids: kernel {ms:.4f} ms (bound "
+        f"{bnd[0]:.4f}, {bnd[1]}; {bnd[0] / ms * 100:.1f} % of it), plain "
+        f"{plain_ms:.4f}, index_select {lib_ms:.4f} ms ({lib_ms / ms:.2f}x "
+        f"the kernel's time; turns kernel {turns[0]:.4f} / {turns[3]:.4f}, "
+        f"index_select {turns[1]:.4f} / {turns[2]:.4f}; medians of 30 single "
+        f"launches, CUDA events); back to back (runs of 10 calls): kernel "
+        f"{b2b_ms:.4f} ({bnd[0] / b2b_ms * 100:.1f} % of the bound), "
+        f"index_select {b2b_lib_ms:.4f} (turns kernel {b2b[0]:.4f} / "
+        f"{b2b[3]:.4f}, index_select {b2b[1]:.4f} / {b2b[2]:.4f})")
+    return dict(what=what, shape=[ids.shape[0], table.shape[1]],
+                dtype=str(table.dtype)[6:], ids=width, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
+                library_ms=lib_ms, turns=turns,
+                faster_in_every_turn=max(turns[0], turns[3])
+                < min(turns[1], turns[2]),
+                back_to_back_ms=b2b_ms, back_to_back_library_ms=b2b_lib_ms,
+                back_to_back_turns=b2b,
+                faster_in_every_back_to_back_turn=max(b2b[0], b2b[3])
+                < min(b2b[1], b2b[2]))
+
+
 def phase_gather(train_n0):
     """K5 against its plain versions (index_select, torch.gather), bitwise:
     the row gather at the main path's shapes and at ragged ones, the
@@ -509,47 +577,36 @@ def phase_gather(train_n0):
     log("== phase 3b: gather kernels (K5) vs index_select / torch.gather")
     gen = torch.Generator().manual_seed(5)
     rows_result = []
-    for clouds, n, k, c, dtype, what in (
-            (2 * N_PAIRS, N0, 32, 32, torch.bfloat16, "inference features"),
-            (2 * N_PAIRS, N0, 32, 3, torch.float32, "inference coordinates"),
-            (4, train_n0, 32, 32, torch.float32, "training features")):
+    # the main path's gathers take a table's int32 flat ids; the coordinate
+    # rows (the narrow path) are timed with int64 ids too
+    for clouds, n, k, c, dtype, id_dtypes, what in (
+            (2 * N_PAIRS, N0, 32, 32, torch.bfloat16, (torch.int32,),
+             "inference features"),
+            (2 * N_PAIRS, N0, 32, 3, torch.float32,
+             (torch.int32, torch.int64), "inference coordinates"),
+            (4, train_n0, 32, 32, torch.float32, (torch.int32,),
+             "training features")):
         table = torch.randn(clouds * (n + 1), c, generator=gen).to(DEVICE,
                                                                    dtype)
-        ids = neighbor_like_ids(gen, clouds, n, k)
-        got = row_gather(table, ids)
-        ref = row_gather_reference(table, ids)
-        torch.cuda.synchronize()
-        err = float((got.float() - ref.float()).abs().max())
-        check(torch.equal(got, ref), f"row gather {what} ({ids.shape[0]} "
-              f"rows x {c} {dtype}) bitwise equal to index_select")
-        ms = cuda_ms(lambda: row_gather(table, ids))
-        plain_ms = cuda_ms(lambda: row_gather_reference(table, ids))
-        lib_ms = cuda_ms(lambda: torch.index_select(table, 0, ids))
-        item = table.element_size()
-        # reads the table and the ids, writes the rows; no arithmetic
-        bnd = bound(0, table.numel() * item + ids.numel() * 8
-                    + got.numel() * item, "float32")
-        log(f"  row gather {what}: kernel {ms:.4f} ms (bound "
-            f"{bnd[0]:.4f}, {bnd[1]}; {bnd[0] / ms * 100:.1f} % of it), "
-            f"plain {plain_ms:.4f}, index_select {lib_ms:.4f} ms (medians "
-            f"of 30, CUDA events)")
-        rows_result.append(dict(
-            what=what, shape=[ids.shape[0], c], dtype=str(dtype)[6:],
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd[0],
-            bound_by=bnd[1], library_ms=lib_ms))
-        del table, ids, got, ref
+        ids64 = neighbor_like_ids(gen, clouds, n, k)
+        for id_dtype in id_dtypes:
+            ids = ids64.to(id_dtype)
+            rows_result.append(_time_row_gather(table, ids, what))
+        del table, ids, ids64
     # ragged widths (every vector width) and row counts off every block
     for c in (1, 3, 7, 32, 65, 128):
         for dtype in (torch.float32, torch.bfloat16):
             table = torch.randn(3001, c, generator=gen).to(DEVICE, dtype)
-            ids = torch.randint(0, 3000, (70001,), generator=gen).to(DEVICE)
+            ids = torch.randint(0, 3000, (70002,), generator=gen).to(DEVICE)
             shifted = table.view(-1)[1:1 + 3000 * c].view(3000, c)
-            same = (torch.equal(row_gather(table, ids),
-                                row_gather_reference(table, ids))
-                    and torch.equal(row_gather(shifted, ids),
-                                    row_gather_reference(shifted, ids)))
+            same = all(torch.equal(row_gather(tab, i.to(id_dtype)),
+                                   row_gather_reference(tab, i))
+                       for tab in (table, shifted)
+                       for i in (ids[:70001], ids[1:])
+                       for id_dtype in (torch.int32, torch.int64))
             check(same, f"row gather 70001 x {c} {dtype} (aligned and "
-                  "offset table) bitwise equal to index_select")
+                  "offset table, int32 and int64 ids, aligned and off 16 "
+                  "bytes) bitwise equal to index_select")
     def element_case(shape, axis, dtype, what="", offset=0, batch_pad=0):
         """src of `shape` (3-D: a batch stride `batch_pad` rows larger than
         its slice), `offset` elements past an allocation's start; idx at
@@ -693,7 +750,8 @@ def phase_small_input():
         launches = (attention.flash_masked_attention.launches,
                     attention.flash_attn_bwd_dkv.launches,
                     attention.flash_attn_bwd_dq.launches,
-                    kpconv.sorted_padded_segment_sum.launches)
+                    kpconv.segment_sum.launches,
+                    kpconv.segment_transpose.launches)
         losses, _ = model.loss_levels(
             levels, torch.from_numpy(pose.astype(np.float32)).to(dev),
             torch.from_numpy(ov).to(dev))
@@ -705,13 +763,14 @@ def phase_small_input():
             attention.flash_masked_attention.launches,
             attention.flash_attn_bwd_dkv.launches,
             attention.flash_attn_bwd_dq.launches,
-            kpconv.sorted_padded_segment_sum.launches))]
+            kpconv.segment_sum.launches,
+            kpconv.segment_transpose.launches))]
     n_attn = 2 * tiny_config()["num_encoder_layers"]
-    n_seg = len(tiny_config()["architecture"]) - 1
-    check(counts["cpu"] == [0, 0, 0, 0]
-          and counts[DEVICE] == [n_attn, n_attn, n_attn, n_seg],
-          f"tiny step launches (fwd, dkv, dq, segsum): CPU {counts['cpu']}, "
-          f"card {counts[DEVICE]}")
+    n_seg, n_transposes = gather_transposes_per_step(tiny_config())
+    check(counts["cpu"] == [0] * 5
+          and counts[DEVICE] == [n_attn, n_attn, n_attn, n_seg, n_transposes],
+          f"tiny step launches (fwd, dkv, dq, segsum, transpose): CPU "
+          f"{counts['cpu']}, card {counts[DEVICE]}")
     worst = max((rel_l2(grads[DEVICE][n], g), n) for n, g in
                 grads["cpu"].items() if float(g.norm()) > 1e-6)
     check(worst[0] < TOL_GRAD, f"tiny step gradients card vs CPU, leaf by "
@@ -873,6 +932,7 @@ def profile_device(run, n, what, trace_name):
         per_name[name] = per_name.get(name, 0.0) + e["dur"]
     for name, us in sorted(per_name.items(), key=lambda kv: -kv[1])[:12]:
         log(f"  {us / 1e3 / n:8.2f} ms/{what}  {name}")
+    return per_name
 
 
 def phase_main_path():
@@ -934,10 +994,12 @@ def phase_main_path():
     forwards = REPEATS * TIMED_ITERS
     check(launches == {"flash_attn_fwd": per_forward * forwards,
                        "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0,
-                       "segsum": 0, "row_gather": gathers * forwards,
+                       "segsum": 0, "segment_transpose": 0,
+                       "row_gather": gathers * forwards,
                        "element_gather": 0},
           f"launches in {forwards} forwards: {launches} ({per_forward} "
-          f"attention forwards and {gathers} row gathers per forward)")
+          f"attention forwards and {gathers} row gathers per forward, no "
+          "gather transpose)")
     peak = torch.cuda.max_memory_allocated()
     pairs_per_s = statistics.median(rates)
     log(f"forward: {N_PAIRS / pairs_per_s * 1e3:.1f} ms per batch of "
@@ -1048,16 +1110,25 @@ def phase_main_path():
     return launches, forwards
 
 
+_COUNTED = {}
+
+
 def _counted():
-    """Every kernel wrapper, by the name the kernels line gives it."""
+    """Every kernel wrapper, by the name the kernels line gives it (taken
+    once, so that a route that swaps a wrapper for its plain version still
+    reads the wrappers' counts)."""
     from regtr_tpu_torch.ops import attention, gather, kpconv
 
-    return {"flash_attn_fwd": attention.flash_masked_attention,
+    if not _COUNTED:
+        _COUNTED.update({
+            "flash_attn_fwd": attention.flash_masked_attention,
             "flash_attn_bwd_dkv": attention.flash_attn_bwd_dkv,
             "flash_attn_bwd_dq": attention.flash_attn_bwd_dq,
-            "segsum": kpconv.sorted_padded_segment_sum,
+            "segsum": kpconv.segment_sum,
+            "segment_transpose": kpconv.segment_transpose,
             "row_gather": gather.row_gather,
-            "element_gather": gather.element_gather}
+            "element_gather": gather.element_gather})
+    return _COUNTED
 
 
 def _launch_counts():
@@ -1082,6 +1153,23 @@ def row_gathers_per_forward(cfg):
         n += 1 if key in seen else 2
         seen.add(key)
     return n
+
+
+# The kernels of csrc/segsum.cu, as the profiler names them.
+K4_KERNELS = ("segsum_kernel", "transpose_", "scan_reduce_kernel",
+              "scan_sums_kernel", "scan_apply_kernel")
+
+
+def gather_transposes_per_step(cfg):
+    """(segment sums, transposes) in one training step's backward: one
+    gather with a gradient per block after the first (the first block's
+    input is the constant feature, which has none), and one transpose per
+    distinct (conv or pool, level) table among those blocks."""
+    from regtr_tpu_torch.nn.backbone import encoder_plan
+
+    keys = [("pool" if "strided" in name else "conv", li)
+            for name, *_, li in encoder_plan(cfg)[0]][1:]
+    return len(keys), len(set(keys))
 
 
 def k5_against_index_select(run, iters):
@@ -1116,60 +1204,186 @@ def plain_row_gather():
         kpconv.row_gather = gather.row_gather
 
 
-def check_segsum(table, n_pad):
-    """The segment-sum kernel on the gather transpose of a real neighbor
-    table (B, Nq, K) into clouds of n_pad rows (the pad row last): against
-    the plain version and index_add_, twice for bitwise repeatability, in
-    fp32 at the backbone's level-0 width (32) and at ragged widths, and in
-    bf16.  Returns the kernels line's numbers at the fp32, width-32 shape."""
+def _in_turns(fns, names, reps=1):
+    """Median ms of each fn (CUDA events; `reps` calls per run, see
+    cuda_ms), in turns: in order, then in reverse; -> {name: [first,
+    second]}."""
+    times = {name: [] for name in names}
+    for fn, name in list(zip(fns, names)) + list(zip(fns, names))[::-1]:
+        times[name].append(cuda_ms(fn, reps=reps))
+    return times
+
+
+def check_transpose(ids, num, stride, what):
+    """The transpose kernels bitwise against the plain version (starts, and
+    perm's rows of a segment), twice; -> the kernel's transpose."""
     import torch
 
-    from regtr_tpu_torch.ops.kpconv import (padded_segment_sum_reference,
-                                            sorted_padded_segment_sum)
+    from regtr_tpu_torch.ops.kpconv import (segment_transpose,
+                                            segment_transpose_reference)
+
+    got = segment_transpose(ids, num, stride)
+    again = segment_transpose(ids, num, stride)
+    ref = segment_transpose_reference(ids, num, stride)
+    torch.cuda.synchronize()
+    m = int(ref.starts[-1])
+    longest = int(ref.starts.diff().max())
+    check(all(torch.equal(t.starts, ref.starts)
+              and torch.equal(t.perm[:m], ref.perm[:m]) for t in (got, again)),
+          f"segment transpose, {what} ({ids.shape[0]} {str(ids.dtype)[6:]} "
+          f"ids, {num} segments, {m} non-pad rows, longest segment "
+          f"{longest}): bitwise the stable sort, twice")
+    return got
+
+
+def check_segsum(table, n_pad):
+    """The gather transpose on a real neighbor table (B, Nq, K) into clouds
+    of n_pad rows (the pad row last), by its flat ids as the main path
+    makes them (int32): the transpose kernels bitwise against the plain
+    version (there, with int64 ids, with each cloud's shadow row kept as
+    batched_row_gather's backward keeps it, and on tables with a segment of
+    6000 rows, of pad rows only and with empty segments); the segment-sum
+    kernel over the kernel's transpose against the same kernel over the
+    plain transpose (bitwise), the plain version and index_add_, twice for
+    bitwise repeatability, in fp32 at the backbone's level-0 width (32) and
+    at ragged widths, and in bf16.  Times in turns, as single launches and
+    back to back: the transpose beside torch.sort of the same int32 ids,
+    the sum, and their first use together.  Returns the kernels line's
+    numbers (fp32, width 32): the gather transpose's at first use
+    (transpose + sum: the whole function, as the earlier design's `ms`
+    timed it with a sort in every backward in place of the transpose), with
+    the sum's beside it, and the transpose's."""
+    import torch
+
+    from regtr_tpu_torch.ops.kpconv import (GatherIndex,
+                                            padded_segment_sum_reference,
+                                            segment_sum, segment_transpose,
+                                            segment_transpose_reference)
 
     b = table.shape[0]
-    offs = torch.arange(b, device=table.device)[:, None] * n_pad
-    ids = (table.reshape(b, -1) + offs).reshape(-1)
-    num = b * n_pad
+    index = GatherIndex(table, n_pad)
+    ids, num = index.flat, index.num_segments
+    t = check_transpose(ids, num, n_pad, "level-0 table")
+    check_transpose(ids.long(), num, n_pad, "level-0 table")
     gen = torch.Generator(device="cpu").manual_seed(3)
+    long_seg = torch.randint(0, num, (ids.shape[0] // 8,), generator=gen)
+    long_seg[torch.randperm(long_seg.shape[0], generator=gen)[:6000]] = 5
+    check_transpose(long_seg.to(DEVICE, torch.int32), num, n_pad,
+                    "a segment of 6000 rows")
+    pads = (torch.arange(b) * n_pad + n_pad - 1).repeat_interleave(50000)
+    check_transpose(pads.to(DEVICE, torch.int32), num, n_pad, "pad rows only")
+    evens = 2 * torch.randint(0, num // 2, (200000,), generator=gen)
+    check_transpose(evens.to(DEVICE, torch.int32), num, n_pad,
+                    "only even segments named")
+    plain_t = segment_transpose_reference(ids, num, n_pad)
+    rows, m = ids.shape[0], int(t.starts[-1])
     result = None
     for c, dtype in ((32, torch.float32), (33, torch.float32),
                      (192, torch.float32), (32, torch.bfloat16)):
-        g = torch.randn(ids.shape[0], c, generator=gen).to(DEVICE, dtype)
-        got = sorted_padded_segment_sum(g, ids, num, n_pad)
-        again = sorted_padded_segment_sum(g, ids, num, n_pad)
+        g = torch.randn(rows, c, generator=gen).to(DEVICE, dtype)
+        got = segment_sum(g, t)
+        again = segment_sum(g, t)
+        over_plain = segment_sum(g, plain_t)
         ref = padded_segment_sum_reference(g, ids, num, n_pad)
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
         scale = float(ref.abs().max())
-        log(f"  segsum rows {ids.shape[0]} x {c} {dtype}: max abs err "
-            f"{err:.3e} (largest |sum| {scale:.2f}, tol {TOL_SEGSUM:g} x "
-            f"that)")
+        log(f"  segsum rows {rows} x {c} {dtype}: max abs err {err:.3e} "
+            f"(largest |sum| {scale:.2f}, tol {TOL_SEGSUM:g} x that)")
         check(got.dtype == torch.float32 and got.shape == (num, c),
               "segsum dtype/shape")
         check(err <= TOL_SEGSUM * scale, f"segsum {c} {dtype} within "
               "tolerance")
-        check(torch.equal(got, again), f"segsum {c} {dtype} bitwise "
-              "repeatable")
+        check(torch.equal(got, again) and torch.equal(got, over_plain),
+              f"segsum {c} {dtype} bitwise repeatable, and bitwise the sum "
+              "over the plain transpose")
         if result is not None:
             continue
-        ms = cuda_ms(lambda: sorted_padded_segment_sum(g, ids, num, n_pad))
-        sort_ms = cuda_ms(lambda: torch.sort(ids, stable=True))
+
+        def sort_search(keys):
+            sorted_ids, _ = torch.sort(keys, stable=True)
+            torch.searchsorted(sorted_ids, torch.arange(
+                num + 1, device=DEVICE, dtype=keys.dtype))
+
+        fns = [lambda: segment_transpose(ids, num, n_pad),
+               lambda: torch.sort(ids, stable=True),
+               lambda: segment_sum(g, t),
+               lambda: segment_sum(g, segment_transpose(ids, num, n_pad))]
+        names = ["transpose", "sort", "sum", "first_use"]
+        turns = _in_turns(fns, names)
+        b2b = _in_turns(fns, names, reps=10)
+        ms = {k: sum(v) / 2 for k, v in turns.items()}
+        b2b_ms = {k: sum(v) / 2 for k, v in b2b.items()}
+        t_plain_ms = cuda_ms(lambda: segment_transpose_reference(ids, num,
+                                                                 n_pad))
+        sort_search_ms = cuda_ms(lambda: sort_search(ids))
+        # the earlier design's sort before its sum: int64 keys
+        parent_ms = cuda_ms(lambda: sort_search(ids.long()))
         plain_ms = cuda_ms(lambda: padded_segment_sum_reference(g, ids, num,
                                                                 n_pad))
         lib_ms = cuda_ms(lambda: torch.zeros(
             (num, c), device=DEVICE).index_add_(0, ids, g))
-        rows = ids.shape[0]
-        # reads g and the ids, writes the sums; one add per element
-        bnd = bound(rows * c, rows * c * 4 + rows * 8 + num * c * 4,
-                    "float32")
-        log(f"  segsum {rows} x {c} fp32: kernel {ms:.4f} ms (of which the "
-            f"id sort {sort_ms:.4f}; bound {bnd[0]:.4f}, {bnd[1]}), plain "
-            f"{plain_ms:.4f}, index_add_ {lib_ms:.4f} ms (medians of 30, "
-            f"CUDA events)")
-        result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                  "bound_ms": bnd[0], "bound_by": bnd[1],
-                  "library_ms": lib_ms, "rows": rows, "width": c}
+        # the transpose reads the ids and writes perm's non-pad rows and
+        # starts; the sum reads the non-pad rows of g, their perm entries
+        # and starts and writes the sums, one add per element
+        t_bnd = bound(0, rows * 4 + m * 4 + (num + 1) * 4, "float32")
+        s_bnd = bound(m * c, m * c * 4 + m * 4 + (num + 1) * 4 + num * c * 4,
+                      "float32")
+        first_bnd = bound(m * c, rows * 4 + m * c * 4 + num * c * 4,
+                          "float32")
+        log(f"  segment transpose {rows} int32 ids, {num} segments ({m} "
+            f"non-pad rows): kernel {ms['transpose']:.4f} ms (bound "
+            f"{t_bnd[0]:.4f}, {t_bnd[1]}; "
+            f"{t_bnd[0] / ms['transpose'] * 100:.1f} % of it), plain "
+            f"{t_plain_ms:.4f}, torch.sort(stable) of the int32 ids "
+            f"{ms['sort']:.4f} (+ searchsorted {sort_search_ms:.4f}; of "
+            f"int64 ids, the earlier design's, {parent_ms:.4f}) ms")
+        log(f"  segsum {rows} x {c} fp32 over the transpose: kernel "
+            f"{ms['sum']:.4f} ms (bound {s_bnd[0]:.4f}, {s_bnd[1]}; "
+            f"{s_bnd[0] / ms['sum'] * 100:.1f} % of it); first use "
+            f"(transpose + sum) {ms['first_use']:.4f} ms (bound "
+            f"{first_bnd[0]:.4f}); plain {plain_ms:.4f}, index_add_ "
+            f"{lib_ms:.4f} ms (medians of 30 single launches, CUDA events; "
+            f"turns " + "; ".join(f"{k} " + " / ".join(f"{x:.4f}" for x in v)
+                                  for k, v in turns.items()) + ")")
+        log("  back to back (runs of 10 calls): " + "; ".join(
+            f"{k} {b2b_ms[k]:.4f} ({' / '.join(f'{x:.4f}' for x in v)})"
+            for k, v in b2b.items()))
+        # batched_row_gather's backward keeps each cloud's shadow row: a
+        # segment of every unfilled neighbor slot per cloud
+        shadow = check_transpose(ids, num, num + 1,
+                                 "level-0 table, shadow rows kept")
+        longest = int(shadow.starts.diff().max())
+        del shadow
+        sh = _in_turns([lambda: segment_transpose(ids, num, num + 1),
+                        lambda: torch.sort(ids, stable=True)],
+                       ["transpose", "sort"])
+        sh_ms = {k: sum(v) / 2 for k, v in sh.items()}
+        log(f"  segment transpose, shadow rows kept (longest segment "
+            f"{longest}): kernel {sh_ms['transpose']:.4f} ms, "
+            f"torch.sort(stable) {sh_ms['sort']:.4f} ms (turns "
+            + "; ".join(f"{k} " + " / ".join(f"{x:.4f}" for x in v)
+                        for k, v in sh.items()) + ")")
+        result = {"segsum": {
+            "max_abs_err": err, "ms": ms["first_use"], "plain_ms": plain_ms,
+            "bound_ms": first_bnd[0], "bound_by": first_bnd[1],
+            "library_ms": lib_ms,
+            "back_to_back_ms": b2b_ms["first_use"],
+            "sum_ms": ms["sum"], "sum_back_to_back_ms": b2b_ms["sum"],
+            "sum_bound_ms": s_bnd[0],
+            "rows": rows, "width": c, "non_pad_rows": m},
+            "segment_transpose": {
+            "max_abs_err": 0.0, "ms": ms["transpose"], "plain_ms": t_plain_ms,
+            "bound_ms": t_bnd[0], "bound_by": t_bnd[1],
+            "library_ms": ms["sort"],
+            "back_to_back_ms": b2b_ms["transpose"],
+            "back_to_back_library_ms": b2b_ms["sort"],
+            "sort_searchsorted_ms": sort_search_ms,
+            "parent_route_ms": parent_ms,
+            "rows": rows, "segments": num, "non_pad_rows": m,
+            "shadow_rows_kept": {"ms": sh_ms["transpose"],
+                                 "library_ms": sh_ms["sort"],
+                                 "longest_segment": longest}}}
     return result
 
 
@@ -1206,9 +1420,7 @@ def phase_training():
     opt = Optimizer(model.parameters(), cfg)
     step = steps.make_train_step(model, opt, cfg)
     n_attn = 2 * cfg["num_encoder_layers"]     # self + cross per layer
-    # one gather with a gradient per block after the first (the first
-    # block's input is the constant feature, which has none)
-    n_segsum = len(cfg["architecture"]) - 1
+    n_segsum, n_transposes = gather_transposes_per_step(cfg)
     gathers = row_gathers_per_forward(cfg)
 
     # -- K4 on the step's own level-0 neighbor table
@@ -1218,19 +1430,26 @@ def phase_training():
 
     # -- first-step gradients: kernels vs the plain attention, gather and
     # gather transpose on the card, same parameters and batch; and the
-    # kernels with only K5 replaced by index_select, and once more
+    # kernels with only K5 replaced by index_select, with only the
+    # transpose kernel replaced by its plain version (a stable sort), and
+    # once more
     grads = {}
     kernel_attention = transformer.flash_masked_attention
     kernel_gather = kpconv.batched_row_gather_padded
+    kernel_transpose = kpconv.segment_transpose
     kernels = {"flash_attn_fwd": n_attn, "flash_attn_bwd_dkv": n_attn,
                "flash_attn_bwd_dq": n_attn, "segsum": n_segsum,
-               "row_gather": gathers, "element_gather": 0}
+               "segment_transpose": n_transposes, "row_gather": gathers,
+               "element_gather": 0}
     wants = {"kernels": kernels, "index_select": dict(kernels, row_gather=0),
+             "plain transpose": dict(kernels, segment_transpose=0),
              "plain": dict.fromkeys(kernels, 0), "kernels again": kernels}
     for route, want in wants.items():
         with contextlib.ExitStack() as stack:
             if route in ("plain", "index_select"):
                 stack.enter_context(plain_row_gather())
+            if route == "plain transpose":
+                kpconv.segment_transpose = kpconv.segment_transpose_reference
             if route == "plain":
                 transformer.flash_masked_attention = \
                     attention.flash_masked_attention_plain
@@ -1249,10 +1468,11 @@ def phase_training():
             finally:
                 transformer.flash_masked_attention = kernel_attention
                 kpconv.batched_row_gather_padded = kernel_gather
+                kpconv.segment_transpose = kernel_transpose
         log(f"first step, {route}: loss {losses['total'].item():.5f}, "
             f"forward + backward {elapsed * 1e3:.1f} ms, launches {used}")
         check(used == want, f"{route} route launched {want}")
-    for route in ("kernels again", "index_select"):
+    for route in ("kernels again", "index_select", "plain transpose"):
         check(all(torch.equal(a, b) for a, b in zip(grads["kernels"],
                                                      grads[route])),
               f"first-step gradients, kernels vs {route}: bitwise equal "
@@ -1265,6 +1485,7 @@ def phase_training():
           f"first-step gradients, kernels vs plain, leaf by leaf over "
           f"{len(errs)} parameters: worst rel L2 {errs[0][0]:.2e} "
           f"({errs[0][1]}; tol {TOL_GRAD})")
+    segsum["segsum"]["first_step_grad_rel_l2"] = errs[0][0]
     del grads
 
     # -- warm-up, then the timed window with the counts zeroed just before
@@ -1283,7 +1504,8 @@ def phase_training():
     want = {k: v * TRAIN_STEPS for k, v in kernels.items()}
     check(launches == want, f"launches in {TRAIN_STEPS} steps: {launches} "
           f"({n_attn} attention forwards and backwards, {n_segsum} "
-          f"segment sums and {gathers} row gathers per step)")
+          f"segment sums over {n_transposes} transposes (one per distinct "
+          f"table) and {gathers} row gathers per step)")
     totals = [float(m["total"]) for m in history]
     norms = [float(m["grad_norm"]) for m in history]
     log(f"train: {elapsed / TRAIN_STEPS * 1e3:.1f} ms per step, "
@@ -1341,8 +1563,23 @@ def phase_training():
 
     log("forward + loss + backward, K5 vs index_select in turns (5 each, "
         f"host clock): {k5_against_index_select(forward_backward, 5)} ms")
-    profile_device(lambda: step(batch), PROFILED_ITERS, "step",
-                   "train_trace.json")
+    per_name = profile_device(lambda: step(batch), PROFILED_ITERS, "step",
+                              "train_trace.json")
+    # the gather transpose's kernels by name: the transpose's (count, the
+    # scan's three, fill, order, the long pass's two) and the sum, with
+    # their device time per step (PyTorch's own scans, e.g. cumsum's
+    # scan_innermost_dim, are not among them)
+    mine = {name: us for name, us in per_name.items()
+            if any(k in name for k in K4_KERNELS)}
+    check(any("transpose_" in n for n in mine)
+          and any("segsum_kernel" in n for n in mine),
+          "the step's profile shows the transpose and segsum kernels")
+    for name, us in sorted(mine.items(), key=lambda kv: -kv[1]):
+        log(f"  {us / 1e3 / PROFILED_ITERS:8.3f} ms/step  {name}")
+    k4_ms = sum(mine.values()) / 1e3 / PROFILED_ITERS
+    log(f"gather transpose (K4: transposes + segment sums) in the step's "
+        f"profile: {k4_ms:.3f} ms per step")
+    segsum["segsum"]["step_profile_ms"] = k4_ms
     return launches, segsum
 
 
@@ -1651,7 +1888,9 @@ def main():
                     ("training", (32, train_n, train_n, 32)),
                     ("protocol", (16, protocol_n, protocol_n, 32)))]
     fp64 = bwd.pop("fp64")
-    segsum_shape = [segsum.pop("rows"), segsum.pop("width")]
+    k4 = segsum["segsum"]
+    k4_shape = [k4.pop("rows"), k4.pop("width")]
+    transpose = segsum["segment_transpose"]
     row = dict(gather_rows[0])
     row.pop("what")
     protocol_launches = {bm: r["launches"]["row_gather"]
@@ -1687,8 +1926,13 @@ def main():
              source=src + "segsum.cu",
              replaces="regtr_tpu/ops/pallas/segsum.py:60",
              launches=train_launches["segsum"], steps=TRAIN_STEPS,
-             shape=segsum_shape,
-             dtype="float32", **segsum),
+             shape=k4_shape, dtype="float32", **k4),
+        dict(name="segment_transpose", row="K4", route="cuda",
+             source=src + "segsum.cu",
+             replaces="regtr_tpu/ops/pallas/segsum.py:205",
+             launches=train_launches["segment_transpose"], steps=TRAIN_STEPS,
+             infer_launches=infer_launches["segment_transpose"],
+             forwards=forwards, id_dtype="int32", **transpose),
         dict(name="row_gather", row="K5a", route="cuda",
              source=src + "gather.cu",
              replaces="tools/exp_pallas_gather.py:44",

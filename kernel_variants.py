@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Time design variants of the attention kernels (and of K5b, the element
-gather) on one CUDA card.
+gather; K5a's narrow rows; K4, the gather transpose) on one CUDA card.
 
-    python3 kernel_variants.py [--forward | --gather] [--parent OLD.cu]
-                               [--variants NAME,NAME,...]
+    python3 kernel_variants.py [--forward | --gather | --rows | --segsum]
+                               [--parent OLD.cu] [--variants NAME,NAME,...]
+    python3 kernel_variants.py --step-profile TREE
 
 Each variant is the committed regtr_tpu_torch/csrc/flash_attn_bwd.cu (with
---forward: flash_attn_fwd.cu; with --gather: gather.cu) and the headers
+--forward: flash_attn_fwd.cu; with --gather or --rows: gather.cu; with
+--segsum: segsum.cu) and the headers
 beside it (csrc/*.cuh) with a few text edits, each applied to whichever of
 the files holds its text (a variant whose edits no longer apply is skipped,
 and said so).  All are built at once with the port's nvcc flags into
@@ -22,7 +24,28 @@ at the training and protocol shapes (32, 2240, 2240, 32) and (16, 2992,
 2992, 32) in fp32 (errors of out and lse against the plain version and of
 out against an fp64 forward), SDPA's forward the yardstick.  Gather: the
 element gather at the probes' (160, 32, 5120) axis 1 in fp32 and bf16,
-bitwise against torch.gather, and timed in turns with it.  Diagnostic
+bitwise against torch.gather, and timed in turns with it.  Rows: the
+row gather of the inference path's coordinate rows (5 242 880 rows of 3
+fp32 from 8 clouds of 20 481 rows, neighbor-like ids) with int32 and int64
+ids, bitwise against index_select and timed in turns with it (a parent
+source without int32 ids is timed with int64 ids only).  Segsum: the
+transpose of the training step's level-0 flat ids (3 145 728 int32 ids,
+98 308 segments, a third pad rows), of ids with ~1400-row segments and of
+the level-0 ids with each cloud's shadow row kept (segments of ~340 000
+rows) bitwise against a stable sort, the sum over it (fp32, width 32)
+bitwise against the shipped kernel's, and the transpose, the sum and their
+first use together timed in turns; a parent source of the sorted form
+(int64 perm and starts) is timed with its torch.sort + searchsorted route
+on int64 ids, as it ran; torch.sort of the int32 ids is the yardstick.
+Rows and segsum time single launches (chip_smoke.py's `ms`) and runs of 10
+back-to-back calls.  Step profile: the
+training step's backward (the shipped config, chip_smoke.py phase 6's
+batch; 2 warm-up steps, then torch.profiler over 3 backwards) with the
+port imported from TREE (the root of a checkout, e.g. a parent commit
+unpacked by `git archive`): the device time per backward of the gather
+transpose's kernels (segsum, the transpose kernels, and torch.sort's and
+searchsorted's, which only the gather transpose runs in the backward).
+Diagnostic
 variants (marked) compute wrong results on purpose: they only say which
 resource the time goes to.  Needs a card; imports torch and the port.
 """
@@ -30,7 +53,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import statistics
+import json
 import subprocess
 import sys
 import time
@@ -132,6 +155,69 @@ GATHER_VARIANTS = {
                     "128 threads per block"),
 }
 
+_TAIL = "  for (int b = done + threadIdx.x * (int)sizeof(V); b < span;"
+_STAGE = "          *reinterpret_cast<const uint4*>(stage + b)"
+_STORE = "      *reinterpret_cast<uint4*>(o + b) =\n" + _STAGE + ";"
+ROWS_VARIANTS = {
+    "shipped": ([], "the committed source"),
+    "rows_per_thread_1": ([("constexpr int kNarrowRows = 8;",
+                            "constexpr int kNarrowRows = 1;")],
+                          "one row per thread"),
+    "rows_per_thread_2": ([("constexpr int kNarrowRows = 8;",
+                            "constexpr int kNarrowRows = 2;")],
+                          "two rows per thread"),
+    "rows_per_thread_4": ([("constexpr int kNarrowRows = 8;",
+                            "constexpr int kNarrowRows = 4;")],
+                          "four rows per thread"),
+    "rows_per_thread_16": ([("constexpr int kNarrowRows = 8;",
+                            "constexpr int kNarrowRows = 16;")],
+                          "sixteen rows per thread"),
+    "scalar_ids": ([("constexpr bool kVectorIds = true;",
+                     "constexpr bool kVectorIds = false;")],
+                   "ids read one by one, not as 16-byte vectors"),
+    "wide_path": ([("if constexpr (sizeof(V) < 16) {",
+                    "if constexpr (sizeof(V) < 1) {")],
+                  "narrow rows by the wide kernel (one vector per thread)"),
+    "streaming_stores": ([(_STORE, "      __stcs(reinterpret_cast<uint4*>("
+                           "o + b),\n" + _STAGE + ");")],
+                         "the output stored with an evict-first hint"),
+    "streaming_ids": ([("pack.v = reinterpret_cast<const uint4*>(idx)[h];",
+                        "pack.v = __ldcs(reinterpret_cast<const uint4*>(idx)"
+                        " + h);")],
+                      "the ids loaded with an evict-first hint"),
+    "scalar_stage": ([("constexpr bool kStageVectors = true;",
+                       "constexpr bool kStageVectors = false;")],
+                     "the stage written as 4-byte vectors, not 16-byte ones"),
+    "no_table_loads": ([("if (r0 + k < n) mine.v[k * kVecs + i] = src[i];",
+                         "mine.v[k * kVecs + i] = V{};")],
+                       "diagnostic: the table is not read"),
+    "no_output": ([(_TAIL, "  if (ids16 && out16 && !ids16)\n" + _TAIL),
+                   ("    done = span / 16 * 16;", "    done = 0;")],
+                  "diagnostic: the stage is not written out"),
+}
+
+SEGSUM_VARIANTS = {
+    "shipped": ([], "the committed source"),
+    "sum_rows_1": ([("constexpr int kRows = 8;", "constexpr int kRows = 1;")],
+                   "one row's loads in flight (the first design)"),
+    "sum_rows_4": ([("constexpr int kRows = 8;", "constexpr int kRows = 4;")],
+                   "the sum with four rows' loads in flight"),
+    "sum_rows_16": ([("constexpr int kRows = 8;",
+                      "constexpr int kRows = 16;")],
+                    "the sum with sixteen rows' loads in flight"),
+    "sum_warps_8": ([("constexpr int kWarps = 2;",
+                      "constexpr int kWarps = 8;")],
+                    "8 segments (warps) per block"),
+    "sum_warps_1": ([("constexpr int kWarps = 2;",
+                      "constexpr int kWarps = 1;")],
+                    "1 segment (warp) per block"),
+    "long_from_1024": ([("constexpr int kLongSegment = 4096;",
+                         "constexpr int kLongSegment = 1024;")],
+                       "segments of more than 1024 rows by the long pass"),
+    "no_order_pass": ([("    perm[lo + below] = r;", "    perm[p] = r;")],
+                      "diagnostic: the rows are left in the atomics' order"),
+}
+
 # kind -> (source, variants, kernels whose D = 32 / fp32 ptxas lines print)
 KINDS = {
     "bwd": ("flash_attn_bwd.cu", VARIANTS, ["IfLi32E"]),
@@ -139,7 +225,18 @@ KINDS = {
             ["flash_fwd_f32_kernelILi32E", "flash_fwd_bf16_kernelILi32E"]),
     "gather": ("gather.cu", GATHER_VARIANTS,
                ["element_gather_kernelIjLi1ELb1E"]),
+    "rows": ("gather.cu", ROWS_VARIANTS, ["row_gather_narrow_kernelIji"]),
+    "segsum": ("segsum.cu", SEGSUM_VARIANTS,
+               ["segsum_kernelIf", "transpose_"]),
 }
+
+
+def _parent_form(path):
+    """Whether a source is of the committed form, not the sorted form (no
+    int32 row ids; a segsum over int64 perm and starts, no transpose
+    entry)."""
+    text = Path(path).read_text()
+    return "idx_int64" in text or "regtr_segment_transpose" in text
 
 
 def _ptxas_lines(log, kernels):
@@ -151,7 +248,7 @@ def _ptxas_lines(log, kernels):
 
 
 def build(parent, kind, only=None):
-    from regtr_tpu_torch.ops import attention, cuda_build, gather
+    from regtr_tpu_torch.ops import attention, cuda_build, gather, kpconv
 
     name_cu, variants, kernels = KINDS[kind]
     texts = {f.name: f.read_text()
@@ -179,7 +276,8 @@ def build(parent, kind, only=None):
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for name, path in sources.items()}
     declare = {"bwd": attention._declare_bwd, "fwd": attention._declare_fwd,
-               "gather": gather._declare}[kind]
+               "gather": gather._declare, "rows": gather._declare,
+               "segsum": kpconv._declare_segsum}[kind]
     libs = {}
     for name, proc in procs.items():
         log = proc.communicate()[0]
@@ -188,9 +286,293 @@ def build(parent, kind, only=None):
             continue
         print(f"{name}: ptxas: {' / '.join(_ptxas_lines(log, kernels))}")
         lib = ctypes.CDLL(str(OUT / f"{name}.so"))
-        declare(lib)
+        if name == "parent" and not _parent_form(sources[name]):
+            _declare_sorted_form(lib, kind)
+            lib.sorted_form = True
+        else:
+            declare(lib)
         libs[name] = lib
     return libs
+
+
+def _declare_sorted_form(lib, kind):
+    """The sorted form's C interfaces: the row gather with int64 ids only,
+    the segment sum over an int64 sort's perm and starts with the pad
+    stride."""
+    if kind == "rows":
+        lib.regtr_row_gather.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2
+            + [ctypes.c_void_p])
+        lib.regtr_row_gather.restype = ctypes.c_int
+    elif kind == "segsum":
+        lib.regtr_segsum.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
+                                     ctypes.c_longlong, ctypes.c_int,
+                                     ctypes.c_void_p])
+        lib.regtr_segsum.restype = ctypes.c_int
+    else:
+        raise ValueError(f"--parent of another form for {kind}")
+
+
+def _check(err):
+    if err:
+        raise RuntimeError(f"launch failed: {err}")
+
+
+def run_rows(lib, table, ids):
+    """One launch of a library's row gather; its output."""
+    import torch
+
+    out = torch.empty((ids.shape[0], table.shape[1]), dtype=table.dtype,
+                      device=table.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    row_bytes = table.shape[1] * table.element_size()
+    if getattr(lib, "sorted_form", False):
+        _check(lib.regtr_row_gather(table.data_ptr(), ids.data_ptr(),
+                                    out.data_ptr(), ids.shape[0], row_bytes,
+                                    stream))
+    else:
+        _check(lib.regtr_row_gather(
+            table.data_ptr(), ids.data_ptr(), int(ids.dtype == torch.int64),
+            out.data_ptr(), ids.shape[0], row_bytes, stream))
+    return out
+
+
+def main_rows(libs):
+    import torch
+
+    from chip_smoke import neighbor_like_ids
+
+    g = torch.Generator().manual_seed(5)
+    clouds, n, k = 8, 20480, 32
+    table = torch.randn(clouds * (n + 1), 3, generator=g).cuda()
+    ids64 = neighbor_like_ids(g, clouds, n, k)
+    for ids in (ids64.int(), ids64):
+        width = str(ids.dtype)[6:]
+        ref = torch.index_select(table, 0, ids)
+        nbytes = table.numel() * 4 + ids.numel() * ids.element_size() \
+            + ref.numel() * 4
+        print(f"{ids.shape[0]} x 3 fp32, {width} ids: bound "
+              f"{nbytes / 3.35e12 * 1e3:.4f} ms (bytes)")
+        runs = {name: lib for name, lib in libs.items()
+                if ids.dtype == torch.int64
+                or not getattr(lib, "sorted_form", False)}
+        for name, lib in runs.items():
+            print(f"  {name}: bitwise index_select "
+                  f"{torch.equal(run_rows(lib, table, ids), ref)}")
+        for reps in (1, 10):
+            times = {}
+            for name in list(runs) + list(reversed(list(runs))):
+                lib = runs[name]
+                times.setdefault(name, []).append(
+                    (cuda_ms(lambda: run_rows(lib, table, ids), reps=reps),
+                     cuda_ms(lambda: torch.index_select(table, 0, ids),
+                             reps=reps)))
+            print(f"{width} ids, ms in two turns (variant, index_select "
+                  f"right after it), "
+                  + ("single launches:" if reps == 1 else
+                     f"runs of {reps} back-to-back calls:"))
+            for name, turns in times.items():
+                what = (ROWS_VARIANTS[name][1] if name in ROWS_VARIANTS
+                        else "--parent")
+                print(f"  {name}: " + "; ".join(f"{a:.4f} ({b:.4f})"
+                                               for a, b in turns)
+                      + f"  ({what})", flush=True)
+
+
+def run_transpose(lib, ids, num, stride):
+    """One launch of a library's transpose, as ops/kpconv.py
+    segment_transpose makes it; (perm, starts)."""
+    import torch
+
+    rows = ids.shape[0]
+    starts = torch.empty(num + 1, dtype=torch.int32, device=ids.device)
+    perm = torch.empty(rows, dtype=torch.int32, device=ids.device)
+    tmp = torch.empty(lib.regtr_segment_transpose_scratch(rows, num),
+                      dtype=torch.int32, device=ids.device)
+    _check(lib.regtr_segment_transpose(
+        ids.data_ptr(), int(ids.dtype == torch.int64), rows, num, stride,
+        starts.data_ptr(), perm.data_ptr(), tmp.data_ptr(),
+        torch.cuda.current_stream().cuda_stream))
+    return perm, starts
+
+
+def run_sum(lib, g, perm, starts, stride):
+    """One launch of a library's segment sum; its output."""
+    import torch
+
+    num = starts.shape[0] - 1
+    out = torch.empty((num, g.shape[1]), dtype=torch.float32, device=g.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    if getattr(lib, "sorted_form", False):
+        _check(lib.regtr_segsum(g.data_ptr(), perm.data_ptr(),
+                                starts.data_ptr(), out.data_ptr(), num,
+                                g.shape[1], stride, 0, stream))
+    else:
+        _check(lib.regtr_segsum(g.data_ptr(), perm.data_ptr(),
+                                starts.data_ptr(), out.data_ptr(), num,
+                                g.shape[1], 0, stream))
+    return out
+
+
+def level0_ids():
+    """The training step's level-0 flat ids as chip_smoke.py's phase 6
+    makes them (2 pairs of synthetic scans, the shipped config), int32;
+    the number of segments and their stride (the clouds' padded length)."""
+    import torch
+
+    from chip_smoke import N_POINTS, synthetic_samples
+    from regtr_tpu_torch.config import threedmatch_config
+    from regtr_tpu_torch.data.collate import collate_pairs
+    from regtr_tpu_torch.ops.kpconv import GatherIndex
+    from regtr_tpu_torch.ops.pyramid import build_pyramid, make_pyramid_spec
+
+    cfg = threedmatch_config()
+    batch, _ = collate_pairs(synthetic_samples(
+        int(cfg["train_batch_size"]), N_POINTS, 0, cfg), cfg["buckets"])
+    n0 = batch["points"].shape[1]
+    with torch.no_grad():
+        levels = build_pyramid(torch.from_numpy(batch["points"]).cuda(),
+                               torch.from_numpy(batch["mask"]).cuda(),
+                               make_pyramid_spec(cfg, n0))
+    table = levels[0].neighbors
+    index = GatherIndex(table.reshape(table.shape[0], -1), n0 + 1)
+    return index.flat, index.num_segments, n0 + 1
+
+
+def main_segsum(libs):
+    import torch
+
+    from chip_smoke import neighbor_like_ids
+    from regtr_tpu_torch.ops.kpconv import segment_transpose_reference
+
+    g = torch.Generator().manual_seed(3)
+    real, num, stride = level0_ids()
+    # neighbor_like_ids clamps at each cloud's ends: 8 segments of ~1400
+    # rows, the long-segment case
+    clamped = neighbor_like_ids(g, num // stride, stride - 1, 32).int()
+    for what, ids, seg_stride in (
+            ("the training step's level-0 table", real, stride),
+            ("neighbor-like ids with ~1400-row segments", clamped, stride),
+            ("the level-0 table, shadow rows kept (batched_row_gather's "
+             "backward)", real, num + 1)):
+        _segsum_turns(libs, what, ids, num, seg_stride, g,
+                      segment_transpose_reference)
+
+
+def _segsum_turns(libs, what, ids, num, stride, g, reference):
+    import torch
+
+    c = 32
+    ids64 = ids.long()
+    rows = torch.randn(ids.shape[0], c, generator=g).cuda()
+    ref = reference(ids, num, stride)
+    m = int(ref.starts[-1])
+    want = run_sum(libs["shipped"], rows, ref.perm, ref.starts, stride) \
+        if "shipped" in libs else None
+    print(f"{what}: {ids.shape[0]} int32 ids, {num} segments, {m} non-pad "
+          f"rows, longest segment {int(ref.starts.diff().max())}; bound "
+          f"(bytes): transpose "
+          f"{(ids.shape[0] + m + num + 1) * 4 / 3.35e12 * 1e3:.4f} ms, sum "
+          f"{((m * c + m + num + 1) + num * c) * 4 / 3.35e12 * 1e3:.4f} ms")
+
+    def sort_transpose():
+        sorted_ids, perm = torch.sort(ids64, stable=True)
+        return perm, torch.searchsorted(
+            sorted_ids, torch.arange(num + 1, device=ids.device))
+
+    fns = {}
+    for name, lib in libs.items():
+        if getattr(lib, "sorted_form", False):
+            perm, starts = sort_transpose()
+            fns[name] = (sort_transpose,
+                         lambda lib=lib, p=perm, st=starts: run_sum(
+                             lib, rows, p, st, stride),
+                         lambda lib=lib: run_sum(lib, rows, *sort_transpose(),
+                                                 stride))
+            continue
+        perm, starts = run_transpose(lib, ids, num, stride)
+        same_t = (torch.equal(starts, ref.starts)
+                  and torch.equal(perm[:m], ref.perm[:m]))
+        got = run_sum(lib, rows, perm, starts, stride)
+        print(f"  {name}: transpose bitwise the stable sort {same_t}; sum "
+              f"bitwise the shipped kernel's "
+              f"{want is not None and torch.equal(got, want)}")
+        fns[name] = (lambda lib=lib: run_transpose(lib, ids, num, stride),
+                     lambda lib=lib, p=perm, st=starts: run_sum(
+                         lib, rows, p, st, stride),
+                     lambda lib=lib: run_sum(lib, rows, *run_transpose(
+                         lib, ids, num, stride), stride))
+    for reps in (1, 10):
+        times = {}
+        for name in list(fns) + list(reversed(list(fns))):
+            times.setdefault(name, []).append(
+                [cuda_ms(fn, reps=reps) for fn in fns[name]]
+                + [cuda_ms(lambda: torch.sort(ids, stable=True), reps=reps)])
+        print("ms in two turns: transpose / sum / first use (torch.sort of "
+              "the int32 ids right after them), "
+              + ("single launches:" if reps == 1 else
+                 f"runs of {reps} back-to-back calls:"))
+        for name, turns in times.items():
+            what = (SEGSUM_VARIANTS[name][1] if name in SEGSUM_VARIANTS
+                    else "--parent: torch.sort + searchsorted of int64 ids, "
+                    "its sum")
+            print(f"  {name}: " + "; ".join(
+                " / ".join(f"{x:.4f}" for x in t[:3]) + f" ({t[3]:.4f})"
+                for t in turns) + f"  ({what})", flush=True)
+
+
+# The gather transpose's kernels as the profiler names them (chip_smoke.py
+# K4_KERNELS), and the sorted form's sort and searchsorted, which only the
+# gather transpose runs in the backward.  (chip_smoke is imported from
+# TREE, which may predate K4_KERNELS.)
+K4_NAMES = ("segsum_kernel", "transpose_", "scan_reduce_kernel",
+            "scan_sums_kernel", "scan_apply_kernel", "RadixSort",
+            "searchsorted")
+
+
+def main_step_profile(tree):
+    """K4's kernels per training-step backward for the port in `tree`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import regtr_tpu_torch
+    from chip_smoke import N_POINTS, synthetic_samples
+    from regtr_tpu_torch.config import threedmatch_config
+    from regtr_tpu_torch.data.collate import collate_pairs
+    from regtr_tpu_torch.models import create_model
+    from regtr_tpu_torch.train import steps
+    from regtr_tpu_torch.train.optim import Optimizer
+
+    print(f"port from {Path(regtr_tpu_torch.__file__).parent}")
+    cfg = threedmatch_config()
+    batch_np, _ = collate_pairs(synthetic_samples(
+        int(cfg["train_batch_size"]), N_POINTS, 0, cfg), cfg["buckets"])
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch_np.items()}
+    model = create_model(cfg, batch_np["points"].shape[1], "cuda", seed=0)
+    opt = Optimizer(model.parameters(), cfg)
+    step = steps.make_train_step(model, opt, cfg)
+    for _ in range(2):
+        step(batch)
+    per_name, n = {}, 3
+    trace = OUT.parent / "step_profile.json"
+    trace.parent.mkdir(exist_ok=True)
+    for _ in range(n):
+        losses, _ = steps.forward_loss(model, batch)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            steps.backward(opt, losses["total"])
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(trace))
+        for e in json.loads(trace.read_text())["traceEvents"]:
+            if e.get("cat") == "kernel" and any(k in e["name"]
+                                                for k in K4_NAMES):
+                per_name[e["name"]] = per_name.get(e["name"], 0.0) + e["dur"]
+    total = sum(per_name.values()) / 1e3 / n
+    print(f"gather transpose kernels per backward: {total:.4f} ms")
+    for name, us in sorted(per_name.items(), key=lambda kv: -kv[1]):
+        print(f"  {us / 1e3 / n:.4f} ms  {name[:110]}")
 
 
 def run(lib, which, q, k, v, bias, do, lse, delta, scale):
@@ -238,21 +620,13 @@ def run_fwd(lib, q, k, v, bias, scale, want_lse):
     return out, lse
 
 
-def cuda_ms(fn, iters=30, warmup=5):
-    import torch
+def cuda_ms(fn, iters=30, warmup=5, reps=1):
+    """chip_smoke.py's timing: the median ms per call over `iters` runs of
+    `reps` calls between CUDA events (reps=1: single launches, the host's
+    launch latency in; reps=10: back to back)."""
+    from chip_smoke import cuda_ms as timed
 
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return timed(fn, iters, warmup, reps)
 
 
 def fp64_backward(q, k, v, bias, do, scale):
@@ -390,11 +764,22 @@ def main():
                       help="the forward kernel's variants")
     kind.add_argument("--gather", action="store_true",
                       help="the element gather's variants")
+    kind.add_argument("--rows", action="store_true",
+                      help="the row gather's narrow-row variants")
+    kind.add_argument("--segsum", action="store_true",
+                      help="the gather transpose's variants")
+    kind.add_argument("--step-profile", metavar="TREE",
+                      help="the gather transpose's kernels per training "
+                      "backward, for the port in a checkout's root")
     ap.add_argument("--parent", help="another version of the source to time")
     ap.add_argument("--variants", help="comma-separated names: build and "
                     "time only these (and --parent)")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
+    if args.step_profile:
+        sys.path.insert(0, str(Path(args.step_profile).resolve()))
+        print(card_line(), flush=True)
+        return main_step_profile(args.step_profile)
     import torch
     import torch.nn.functional as F
 
@@ -404,7 +789,8 @@ def main():
         raise SystemExit("needs a CUDA card")
     print(card_line(), flush=True)
     t0 = time.perf_counter()
-    kind = "fwd" if args.forward else "gather" if args.gather else "bwd"
+    kind = ("fwd" if args.forward else "gather" if args.gather else "rows"
+            if args.rows else "segsum" if args.segsum else "bwd")
     libs = build(args.parent, kind,
                  args.variants.split(",") if args.variants else None)
     print(f"built {len(libs)} libraries in {time.perf_counter() - t0:.1f} s",
@@ -413,6 +799,10 @@ def main():
         return main_forward(libs)
     if args.gather:
         return main_gather(libs)
+    if args.rows:
+        return main_rows(libs)
+    if args.segsum:
+        return main_segsum(libs)
     names = ("dq", "dk", "dv", "dbias")
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v, bias, do = _masked_inputs((32, 2240, 2240, 32), dtype, 1)

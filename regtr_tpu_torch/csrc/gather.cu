@@ -1,11 +1,12 @@
 // Row and element gathers for Hopper (sm_90a), plain C interface.
 //
 // Row gather: out[r, :] = table[idx[r], :] for a contiguous (rows_table,
-// row_bytes) table and int64 indices.  It is the forward of every neighbor
-// gather of the backbone: the feature rows (fp32 or bf16, width 32 to 256)
-// and the fp32 coordinate rows (width 3, 12 bytes), over the clouds' tables
-// flattened with one pad (shadow) row per cloud.  The indices are in range
-// by construction and are not clamped.
+// row_bytes) table and int32 or int64 indices.  It is the forward of every
+// neighbor gather of the backbone: the feature rows (fp32 or bf16, width 32
+// to 256) and the fp32 coordinate rows (width 3, 12 bytes), over the
+// clouds' tables flattened with one pad (shadow) row per cloud, by the
+// table's int32 flat ids.  The indices are in range by construction and are
+// not clamped.
 //
 // Element gather: out[b, i, j] = src[b, idx[b, i, j], j] (axis 0) or
 // src[b, i, idx[b, i, j]] (axis 1), torch.gather's function over the last
@@ -28,11 +29,16 @@
 // Wide rows (a multiple of 16 bytes, e.g. a bf16 width-32 row of 64 B, four
 // vectors): one vector per thread, neighbouring threads on neighbouring
 // vectors of one output row, then of the next, so a warp's index loads and
-// output stores are coalesced.  Narrow rows of at most kNarrowVecs vectors
-// (the fp32 coordinate rows: 12 B, three 4-byte vectors): one row per
-// thread, so each index is read once and no thread divides.  No shared
-// memory, no atomics: every output element is written by one thread, so
-// the result is the table's bits, bitwise equal to index_select.
+// output stores are coalesced.  Narrow rows of one to four vectors under
+// 16 bytes (the fp32 coordinate rows: 12 B, three 4-byte vectors): a block
+// gathers kNarrowRows rows per thread into shared memory, each thread the
+// rows of two 16-byte vectors of int32 indices (four of int64), and then
+// writes the block's output span, which is contiguous, as 16-byte vectors
+// with neighbouring threads on neighbouring vectors (the first design, one
+// row per thread stored as three 4-byte vectors at a 12-byte stride, made
+// each warp store touch the same sectors three times).  No atomics: every output
+// element is written by one thread, so the result is the table's bits,
+// bitwise equal to index_select.
 //
 // The element gather moves the int64 indices (8 bytes per output) and the
 // outputs in order, and along axis 1 each source row once: at the probes'
@@ -57,66 +63,179 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr long long kMaxBlocks = 1LL << 20;  // the rest by a grid-stride loop
-constexpr int kNarrowVecs = 4;
-
+constexpr int kNarrowRows = 8;  // rows per thread (4: 14 % slower)
+constexpr int kNarrowBlockRows = kThreads * kNarrowRows;
+constexpr bool kVectorIds = true;  // indices as 16-byte loads when aligned
+constexpr bool kStageVectors = true;  // a thread's rows staged as 16 bytes
 // I: the type of the flat vector counter, 32-bit when the count allows (a
-// 32-bit division per vector instead of a 64-bit one).
-template <typename V, typename I>
+// 32-bit division per vector instead of a 64-bit one); Ix: the indices'.
+template <typename V, typename I, typename Ix>
 __global__ void __launch_bounds__(kThreads)
-    row_gather_kernel(const V* __restrict__ table,
-                      const int64_t* __restrict__ idx, V* __restrict__ out,
-                      I total, I vecs_per_row) {
+    row_gather_kernel(const V* __restrict__ table, const Ix* __restrict__ idx,
+                      V* __restrict__ out, I total, I vecs_per_row) {
   const I step = (I)gridDim.x * kThreads;
   for (I t = (I)blockIdx.x * kThreads + threadIdx.x; t < total; t += step) {
     const I r = t / vecs_per_row;
     const I v = t - r * vecs_per_row;
-    out[t] = table[idx[r] * (int64_t)vecs_per_row + v];
+    out[t] = table[(int64_t)idx[r] * (int64_t)vecs_per_row + v];
   }
 }
 
-template <typename V>
+// kNarrowRows consecutive indices from idx[0..n) (n may be short at the
+// span's end): 16-byte loads when `vec` (idx on 16 bytes, n full) and the
+// indices fill whole 16-byte vectors.
+template <typename Ix>
+__device__ __forceinline__ void load_ids(const Ix* idx, int n, bool vec,
+                                         Ix (&id)[kNarrowRows]) {
+  constexpr int kPer16 = 16 / sizeof(Ix);
+  if constexpr (kNarrowRows % kPer16 == 0) {
+    if (vec && n >= kNarrowRows) {
+#pragma unroll
+      for (int h = 0; h < kNarrowRows / kPer16; ++h) {
+        union {
+          uint4 v;
+          Ix e[kPer16];
+        } pack;
+        pack.v = reinterpret_cast<const uint4*>(idx)[h];
+#pragma unroll
+        for (int e = 0; e < kPer16; ++e) id[h * kPer16 + e] = pack.e[e];
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kNarrowRows; ++k) id[k] = k < n ? idx[k] : Ix(0);
+}
+
+// One block per kNarrowBlockRows rows: gather into shared memory (the rows
+// at their output offsets), then copy the block's contiguous output span.
+// A thread's kNarrowRows rows are contiguous in the stage: it writes them
+// as 16-byte vectors when they fill whole ones (the 12-byte rows: three
+// vectors, without bank conflicts, where twelve 4-byte stores at a 48-byte
+// stride would conflict four ways).  `out16`: out on 16 bytes, so the span
+// (kNarrowBlockRows * row bytes after out, a multiple of 2048 bytes)
+// starts on 16 bytes too.
+template <typename V, typename Ix, int kVecs>
 __global__ void __launch_bounds__(kThreads)
     row_gather_narrow_kernel(const V* __restrict__ table,
-                             const int64_t* __restrict__ idx,
-                             V* __restrict__ out, int64_t rows, int vecs) {
-  const int64_t step = (int64_t)gridDim.x * kThreads;
-  for (int64_t r = (int64_t)blockIdx.x * kThreads + threadIdx.x; r < rows;
-       r += step) {
-    const V* src = table + idx[r] * vecs;
-    V* dst = out + r * vecs;
-    V v[kNarrowVecs];
+                             const Ix* __restrict__ idx,
+                             unsigned char* __restrict__ out, long long rows,
+                             bool ids16, bool out16) {
+  constexpr int kRowBytes = kVecs * (int)sizeof(V);
+  constexpr int kThreadVecs = kNarrowRows * kVecs;
+  constexpr bool kStage16 = kStageVectors &&
+                            kThreadVecs * sizeof(V) % 16 == 0;
+  extern __shared__ __align__(16) unsigned char stage[];
+  const long long base = (long long)blockIdx.x * kNarrowBlockRows;
+  const int n = (int)min((long long)kNarrowBlockRows, rows - base);
+  const int r0 = threadIdx.x * kNarrowRows;
+  Ix id[kNarrowRows];
+  load_ids(idx + base + r0, n - r0, kVectorIds && ids16, id);
+  union {
+    V v[kThreadVecs];
+    uint4 q[kStage16 ? kThreadVecs * sizeof(V) / 16 : 1];
+  } mine;
 #pragma unroll
-    for (int i = 0; i < kNarrowVecs; ++i)
-      if (i < vecs) v[i] = src[i];
+  for (int k = 0; k < kNarrowRows; ++k) {
+    const V* src = table + (int64_t)id[k] * kVecs;
 #pragma unroll
-    for (int i = 0; i < kNarrowVecs; ++i)
-      if (i < vecs) dst[i] = v[i];
+    for (int i = 0; i < kVecs; ++i)
+      if (r0 + k < n) mine.v[k * kVecs + i] = src[i];
   }
+  if (kStage16 && r0 + kNarrowRows <= n) {
+    uint4* s = reinterpret_cast<uint4*>(stage + r0 * kRowBytes);
+#pragma unroll
+    for (int c = 0; c < (kStage16 ? kThreadVecs * sizeof(V) / 16 : 0); ++c)
+      s[c] = mine.q[c];
+  } else {
+    V* s = reinterpret_cast<V*>(stage + r0 * kRowBytes);
+#pragma unroll
+    for (int j = 0; j < kThreadVecs; ++j)
+      if (r0 + j / kVecs < n) s[j] = mine.v[j];
+  }
+  __syncthreads();
+  const int span = n * kRowBytes;
+  unsigned char* o = out + base * kRowBytes;
+  int done = 0;
+  if (out16) {
+    done = span / 16 * 16;
+    for (int b = threadIdx.x * 16; b < done; b += kThreads * 16)
+      *reinterpret_cast<uint4*>(o + b) =
+          *reinterpret_cast<const uint4*>(stage + b);
+  }
+  for (int b = done + threadIdx.x * (int)sizeof(V); b < span;
+       b += kThreads * (int)sizeof(V))
+    *reinterpret_cast<V*>(o + b) = *reinterpret_cast<const V*>(stage + b);
 }
 
-template <typename V>
-int launch_rows(const void* table, const int64_t* idx, void* out,
-                long long rows, long long vecs_per_row, cudaStream_t s) {
-  const V* t = static_cast<const V*>(table);
-  V* o = static_cast<V*>(out);
-  if (sizeof(V) < 16 && vecs_per_row <= kNarrowVecs) {
-    long long blocks = (rows + kThreads - 1) / kThreads;
-    if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-    row_gather_narrow_kernel<V><<<(unsigned)blocks, kThreads, 0, s>>>(
-        t, idx, o, rows, (int)vecs_per_row);
-    return (int)cudaGetLastError();
+template <typename V, typename Ix, int kVecs>
+int launch_narrow(const V* table, const Ix* idx, void* out, long long rows,
+                  cudaStream_t s) {
+  const long long blocks = (rows + kNarrowBlockRows - 1) / kNarrowBlockRows;
+  if (blocks >= (1LL << 31)) return (int)cudaErrorInvalidConfiguration;
+  const size_t smem = (size_t)kNarrowBlockRows * kVecs * sizeof(V);
+  auto kernel = row_gather_narrow_kernel<V, Ix, kVecs>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
   }
+  const bool ids16 = reinterpret_cast<uintptr_t>(idx) % 16 == 0;
+  const bool out16 = reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  kernel<<<(unsigned)blocks, kThreads, smem, s>>>(
+      table, idx, static_cast<unsigned char*>(out), rows, ids16, out16);
+  return (int)cudaGetLastError();
+}
+
+bool aligned(const void* p, size_t n) {
+  return reinterpret_cast<uintptr_t>(p) % n == 0;
+}
+
+template <typename V, typename Ix>
+int launch_rows(const void* table, const Ix* idx, void* out, long long rows,
+                long long vecs_per_row, cudaStream_t s) {
+  const V* t = static_cast<const V*>(table);
+  if constexpr (sizeof(V) < 16) {
+    switch (vecs_per_row) {
+      case 1: return launch_narrow<V, Ix, 1>(t, idx, out, rows, s);
+      case 2: return launch_narrow<V, Ix, 2>(t, idx, out, rows, s);
+      case 3: return launch_narrow<V, Ix, 3>(t, idx, out, rows, s);
+      case 4: return launch_narrow<V, Ix, 4>(t, idx, out, rows, s);
+      default: break;  // wider rows: one vector per thread, below
+    }
+  }
+  V* o = static_cast<V*>(out);
   const long long total = rows * vecs_per_row;
   long long blocks = (total + kThreads - 1) / kThreads;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   if (total < (1LL << 31)) {
-    row_gather_kernel<V, uint32_t><<<(unsigned)blocks, kThreads, 0, s>>>(
+    row_gather_kernel<V, uint32_t, Ix><<<(unsigned)blocks, kThreads, 0, s>>>(
         t, idx, o, (uint32_t)total, (uint32_t)vecs_per_row);
   } else {
-    row_gather_kernel<V, int64_t><<<(unsigned)blocks, kThreads, 0, s>>>(
+    row_gather_kernel<V, int64_t, Ix><<<(unsigned)blocks, kThreads, 0, s>>>(
         t, idx, o, (int64_t)total, (int64_t)vecs_per_row);
   }
   return (int)cudaGetLastError();
+}
+
+template <typename Ix>
+int launch_rows_any(const void* table, const Ix* idx, void* out,
+                    long long rows, long long row_bytes, cudaStream_t s) {
+  // The widest vector that divides the row and both pointers' alignment.
+  const size_t widths[] = {16, 8, 4, 2};
+  for (size_t width : widths) {
+    if (row_bytes % width != 0 || !aligned(table, width) ||
+        !aligned(out, width))
+      continue;
+    const long long vecs = row_bytes / (long long)width;
+    switch (width) {
+      case 16: return launch_rows<uint4>(table, idx, out, rows, vecs, s);
+      case 8: return launch_rows<uint2>(table, idx, out, rows, vecs, s);
+      case 4: return launch_rows<uint32_t>(table, idx, out, rows, vecs, s);
+      default: return launch_rows<uint16_t>(table, idx, out, rows, vecs, s);
+    }
+  }
+  return (int)cudaErrorMisalignedAddress;
 }
 
 // The element gather.  One block per output row (b, i) and column chunk:
@@ -295,39 +414,26 @@ int launch_elements(const ElementArgs& a, long long batch, int axis,
   return launch_elements_as<T, 1, false>(a, batch, 0, s);
 }
 
-bool aligned(const void* p, size_t n) {
-  return reinterpret_cast<uintptr_t>(p) % n == 0;
-}
-
 }  // namespace
 
 extern "C" {
 
 // Launches on `stream`; returns cudaGetLastError() after the launch.
 // table: (rows_table, row_bytes) contiguous, row_bytes even; idx: (rows,)
-// int64, each in [0, rows_table); out: (rows, row_bytes), every byte
-// written.  Checked by the caller (regtr_tpu_torch/ops/gather.py).
-int regtr_row_gather(const void* table, const void* idx, void* out,
-                     long long rows, long long row_bytes, void* stream) {
+// int32 (idx_int64 0) or int64 (1), each in [0, rows_table); out: (rows,
+// row_bytes), every byte written.  Checked by the caller
+// (regtr_tpu_torch/ops/gather.py).
+int regtr_row_gather(const void* table, const void* idx, int idx_int64,
+                     void* out, long long rows, long long row_bytes,
+                     void* stream) {
   if (rows <= 0 || row_bytes <= 0 || row_bytes % 2 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t* ix = static_cast<const int64_t*>(idx);
-  // The widest vector that divides the row and both pointers' alignment.
-  const size_t widths[] = {16, 8, 4, 2};
-  for (size_t width : widths) {
-    if (row_bytes % width != 0 || !aligned(table, width) ||
-        !aligned(out, width))
-      continue;
-    const long long vecs = row_bytes / (long long)width;
-    switch (width) {
-      case 16: return launch_rows<uint4>(table, ix, out, rows, vecs, s);
-      case 8: return launch_rows<uint2>(table, ix, out, rows, vecs, s);
-      case 4: return launch_rows<uint32_t>(table, ix, out, rows, vecs, s);
-      default: return launch_rows<uint16_t>(table, ix, out, rows, vecs, s);
-    }
-  }
-  return (int)cudaErrorMisalignedAddress;
+  if (idx_int64)
+    return launch_rows_any(table, static_cast<const int64_t*>(idx), out, rows,
+                           row_bytes, s);
+  return launch_rows_any(table, static_cast<const int32_t*>(idx), out, rows,
+                         row_bytes, s);
 }
 
 // src: (batch, src_rows, src_cols) with the last two dimensions contiguous

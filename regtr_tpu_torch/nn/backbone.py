@@ -50,8 +50,10 @@ def encoder_out_dim(cfg) -> int:
 class KPFEncoder(nn.Module):
     """Stacks Simple/Resnet blocks; returns final features + skip features.
 
-    The first conv block at each (conv|pool, level) computes that table's
-    influence geometry; later blocks at the same table reuse it.
+    The first conv block at each (conv|pool, level) table computes that
+    table's influence geometry and its flat gather ids; later blocks at the
+    same table reuse both, and the table's gather transpose is built once,
+    at the first backward that needs it (nn/blocks.py `TableState`).
     """
 
     def __init__(self, cfg):
@@ -70,12 +72,10 @@ class KPFEncoder(nn.Module):
             self.block_names.append(f"block_{i}_{name}")
 
     def forward(self, x, levels):
-        geoms: dict = {}
+        tables: dict = {}
         skip_x = []
-        for i, (name, *_, li) in enumerate(self.plan):
+        for i, name in enumerate(self.block_names):
             if i in self.skips:
                 skip_x.append(x)
-            x, geom = getattr(self, self.block_names[i])(x, levels, geoms)
-            if geom is not None:
-                geoms[("pool" if "strided" in name else "conv", li)] = geom
+            x = getattr(self, name)(x, levels, tables)
         return x, skip_x

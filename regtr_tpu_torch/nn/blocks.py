@@ -6,12 +6,16 @@ JAX parameters load by name (regtr_tpu_torch/convert.py).
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Optional
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ..core.masking import masked_instance_norm
-from ..ops.kpconv import kpconv_apply, kpconv_fused_gather, max_pool
+from ..ops.kpconv import (GatherIndex, kpconv_apply, kpconv_fused_gather,
+                          max_pool)
 from ..utils.kernel_points import load_kernel_points
 
 LEAKY_SLOPE = 0.1
@@ -98,23 +102,24 @@ class KPConvLayer(nn.Module):
         with torch.no_grad():
             self.kernel_points.copy_(self._dispositions())
 
-    def forward(self, q_pts, s_pts, neighb_inds, x, geom=None, x_extra=None):
+    def forward(self, q_pts, s_pts, index, x, geom=None, x_extra=None):
         """-> (out, max-pool of x_extra or None, geometry or None).
 
-        With `geom`, reuses a level's influence tensor (feature gather
-        only); without it, computes the geometry from the gathered
-        neighbors and returns it for later blocks at the same level.
+        `index`: the neighbor table's GatherIndex, shared with the other
+        blocks at that table.  With `geom`, reuses the table's influence
+        tensor (feature gather only); without it, computes the geometry
+        from the gathered neighbors and returns it for those blocks.
         """
         if geom is not None:
             infl, inv_n = geom
-            out = kpconv_apply(infl, inv_n, neighb_inds, x, self.weights,
+            out = kpconv_apply(infl, inv_n, index, x, self.weights,
                                compute_dtype=self.compute_dtype,
                                norm=self.norm)
-            pooled = (max_pool(x_extra, neighb_inds, self.compute_dtype)
+            pooled = (max_pool(x_extra, index, self.compute_dtype)
                       if x_extra is not None else None)
             return out, pooled, None
         return kpconv_fused_gather(
-            q_pts, s_pts, neighb_inds, x, x_extra, self.kernel_points,
+            q_pts, s_pts, index, x, x_extra, self.kernel_points,
             self.weights, self.extent, influence=self.influence,
             aggregation=self.aggregation, compute_dtype=self.compute_dtype,
             norm=self.norm,
@@ -135,13 +140,29 @@ def _kpconv_layer(cfg, in_dim, out_dim, radius):
     )
 
 
-def _tables(levels, layer_ind, strided):
-    """(query points, neighbor table, output mask, geometry key)."""
+@dataclasses.dataclass
+class TableState:
+    """What the blocks at one (conv | pool, level) neighbor table share: its
+    GatherIndex (the table, its flat ids, and its gather transpose, built
+    at the first backward that needs it) and its influence geometry, once
+    the first block at the table has computed it."""
+    index: GatherIndex
+    geom: Optional[tuple] = None
+
+
+def _tables(levels, layer_ind, strided, tables):
+    """(query points, output mask, TableState), the state made at the
+    table's first block and kept in `tables`."""
     lvl = levels[layer_ind]
     if strided:
         q_lvl = levels[layer_ind + 1]
-        return q_lvl.points, lvl.pools, q_lvl.mask, ("pool", layer_ind)
-    return lvl.points, lvl.neighbors, lvl.mask, ("conv", layer_ind)
+        q_pts, neigh, mask = q_lvl.points, lvl.pools, q_lvl.mask
+    else:
+        q_pts, neigh, mask = lvl.points, lvl.neighbors, lvl.mask
+    key = ("pool" if strided else "conv", layer_ind)
+    if key not in tables:
+        tables[key] = TableState(GatherIndex(neigh, lvl.points.shape[1] + 1))
+    return q_pts, mask, tables[key]
 
 
 class SimpleBlock(nn.Module):
@@ -155,12 +176,13 @@ class SimpleBlock(nn.Module):
         self.kpconv = _kpconv_layer(cfg, in_dim, out_dim // 2, radius)
         self.norm = NormBlock(out_dim // 2, cfg.get("use_batch_norm", True))
 
-    def forward(self, x, levels, geoms):
-        q_pts, neigh, out_mask, key = _tables(levels, self.layer_ind,
-                                              self.strided)
-        out, _, new_geom = self.kpconv(q_pts, levels[self.layer_ind].points,
-                                       neigh, x, geom=geoms.get(key))
-        return leaky_relu(self.norm(out, out_mask)), new_geom
+    def forward(self, x, levels, tables):
+        q_pts, out_mask, table = _tables(levels, self.layer_ind,
+                                         self.strided, tables)
+        out, _, geom = self.kpconv(q_pts, levels[self.layer_ind].points,
+                                   table.index, x, geom=table.geom)
+        table.geom = table.geom or geom
+        return leaky_relu(self.norm(out, out_mask))
 
 
 class ResnetBottleneckBlock(nn.Module):
@@ -182,15 +204,16 @@ class ResnetBottleneckBlock(nn.Module):
                                           no_relu=True)
                                if in_dim != out_dim else None)
 
-    def forward(self, x, levels, geoms):
-        q_pts, neigh, out_mask, key = _tables(levels, self.layer_ind,
-                                              self.strided)
+    def forward(self, x, levels, tables):
+        q_pts, out_mask, table = _tables(levels, self.layer_ind,
+                                         self.strided, tables)
         in_mask = levels[self.layer_ind].mask
         h = self.unary1(x, in_mask) if self.unary1 is not None else x
         # Strided blocks max-pool the shortcut over the conv's own table.
-        h, pooled, new_geom = self.kpconv(
-            q_pts, levels[self.layer_ind].points, neigh, h,
-            geom=geoms.get(key), x_extra=x if self.strided else None)
+        h, pooled, geom = self.kpconv(
+            q_pts, levels[self.layer_ind].points, table.index, h,
+            geom=table.geom, x_extra=x if self.strided else None)
+        table.geom = table.geom or geom
         h = leaky_relu(self.norm_conv(h, out_mask))
         h = self.unary2(h, out_mask)
         # The pooled shortcut is in the compute dtype; a bf16 -> fp32 cast is
@@ -198,4 +221,4 @@ class ResnetBottleneckBlock(nn.Module):
         shortcut = pooled.float() if self.strided else x
         if self.unary_shortcut is not None:
             shortcut = self.unary_shortcut(shortcut, out_mask)
-        return leaky_relu(h + shortcut), new_geom
+        return leaky_relu(h + shortcut)

@@ -11,8 +11,10 @@ Counterpart of the TPU gather kernels of tools/exp_pallas_gather*.py.
   No path of the system calls it; it is the port of the per-element probes.
 
 A gather is a copy: the kernels move the source's bits, so they are bitwise
-equal to their plain versions.  Indices are int64 and in range: the
-kernels do not check or clamp them.  On a CUDA tensor each wrapper launches
+equal to their plain versions.  Indices are in range: the kernels do not
+check or clamp them.  The row gather takes int32 or int64 indices (the
+backbone's flat ids are int32, ops/kpconv.py `GatherIndex`), the element
+gather int64.  On a CUDA tensor each wrapper launches
 its kernel or raises; only a CPU tensor takes the plain version.  Each
 launch adds one to the wrapper's `.launches`.
 """
@@ -29,7 +31,8 @@ DTYPES = (torch.float32, torch.bfloat16)
 
 def _declare(lib):
     lib.regtr_row_gather.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
     lib.regtr_row_gather.restype = ctypes.c_int
     lib.regtr_element_gather.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 4 + [ctypes.c_int]
@@ -53,21 +56,23 @@ def element_gather_reference(src: torch.Tensor, idx: torch.Tensor,
     return torch.gather(src, src.dim() - 2 + axis, idx)
 
 
-def _check_device(x: torch.Tensor, idx: torch.Tensor, what: str):
+def _check_device(x: torch.Tensor, idx: torch.Tensor, what: str,
+                  idx_dtypes=(torch.int64,)):
     if x.device.type != "cuda":
         raise ValueError(f"no {what} for device {x.device}")
     if x.dtype not in DTYPES:
         raise ValueError(f"{what}: dtype {x.dtype} not fp32/bf16")
-    if idx.dtype != torch.int64 or idx.device != x.device:
-        raise ValueError(f"{what}: indices must be int64 on {x.device}")
+    if idx.dtype not in idx_dtypes or idx.device != x.device:
+        raise ValueError(f"{what}: indices must be "
+                         f"{'/'.join(map(str, idx_dtypes))} on {x.device}")
 
 
 def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """table (R_table, C) contiguous, fp32 or bf16; idx (R,) int64 in
-    [0, R_table) -> (R, C) in table's dtype."""
+    """table (R_table, C) contiguous, fp32 or bf16; idx (R,) int32 or int64
+    in [0, R_table) -> (R, C) in table's dtype."""
     if table.device.type == "cpu":
         return row_gather_reference(table, idx)
-    _check_device(table, idx, "row gather")
+    _check_device(table, idx, "row gather", (torch.int32, torch.int64))
     if table.dim() != 2 or idx.dim() != 1:
         raise ValueError(f"expected table (R, C) and idx (R,), got "
                          f"{tuple(table.shape)} and {tuple(idx.shape)}")
@@ -79,7 +84,8 @@ def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return out
     with torch.cuda.device(table.device):
         err = GATHER_LIBRARY.load().regtr_row_gather(
-            table.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0],
+            table.data_ptr(), idx.data_ptr(), int(idx.dtype == torch.int64),
+            out.data_ptr(), idx.shape[0],
             table.shape[1] * table.element_size(),
             torch.cuda.current_stream(table.device).cuda_stream)
     GATHER_LIBRARY.check(err, "row gather")

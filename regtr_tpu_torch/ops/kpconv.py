@@ -22,19 +22,29 @@ flat index; only the feature gather carries a gradient.
 
 Gathers: every neighbor gather is one flat row gather over the clouds'
 tables, `row_gather` (ops/gather.py): on a CUDA tensor it launches
-csrc/gather.cu, on a CPU tensor it runs `index_select`.  Its backward is the
-gather transpose: an fp32 segment sum of the cotangent rows by flat index.
-On a CUDA tensor it launches csrc/segsum.cu (`sorted_padded_segment_sum`,
-counted in its `.launches`), on a CPU tensor it runs the plain version
-(`padded_segment_sum_reference`).  Every feature gather goes through
+csrc/gather.cu, on a CPU tensor it runs `index_select`.  A neighbor table
+is named by its `GatherIndex`: the table and its flat ids (int32), made
+once and shared by the gathers over that table (its coordinate gather and
+its feature gathers).  The backward is the gather transpose: an fp32
+segment sum of the cotangent rows by flat index.  It runs in two parts,
+both in csrc/segsum.cu on CUDA tensors: the table's transpose
+(`segment_transpose`: for each segment its rows in increasing order, pad
+rows dropped), built by the `GatherIndex` at the first backward that needs
+it and kept for the table's other gathers, and the sum over it
+(`segment_sum`, one warp per segment adding its rows in that order).  CPU
+tensors take their plain versions (`segment_transpose_reference`, a stable
+sort; `segment_sum_reference`).  Every feature gather goes through
 `batched_row_gather_padded`, whose backward drops the rows of each cloud's
-pad (shadow) row; `batched_row_gather` drops none.  The segment-sum kernel
-adds in a fixed order, so the backward is bitwise repeatable; `index_add_`
-on CUDA adds with atomics in a run-dependent order.
+pad (shadow) row; `batched_row_gather` drops none, so its backward builds
+a transpose of its own each time (no main path runs it: the coordinates
+take no gradient).  The sums are added in a fixed order, so the backward
+is bitwise repeatable; `index_add_` on CUDA adds with atomics in a
+run-dependent order.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -46,22 +56,103 @@ SHADOW_COORD = 1e6
 
 
 def _declare_segsum(lib):
+    lib.regtr_segment_transpose.argtypes = (
+        [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_longlong] * 3
+        + [ctypes.c_void_p] * 4)
+    lib.regtr_segment_transpose.restype = ctypes.c_int
+    lib.regtr_segment_transpose_scratch.argtypes = [ctypes.c_longlong] * 2
+    lib.regtr_segment_transpose_scratch.restype = ctypes.c_longlong
     lib.regtr_segsum.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
-                                 ctypes.c_longlong, ctypes.c_int,
-                                 ctypes.c_void_p])
+                                 ctypes.c_int, ctypes.c_void_p])
     lib.regtr_segsum.restype = ctypes.c_int
 
 
 SEGSUM_LIBRARY = CudaLibrary("segsum.cu", _declare_segsum)
+INT32_MAX = 2 ** 31 - 1
+
+
+class SegmentTranspose(NamedTuple):
+    """The transpose of a table of flat ids (CSR): the rows of segment s
+    are perm[starts[s]:starts[s + 1]] in increasing order, pad rows in no
+    segment.  perm (R,) int32, starts (num_segments + 1,) int32;
+    perm[starts[-1]:] holds no segment's rows (the plain version puts the
+    pad rows there, the kernel leaves it unwritten)."""
+    perm: torch.Tensor
+    starts: torch.Tensor
+
+
+def _segment_args(flat_ids, num_segments, seg_stride):
+    if flat_ids.dim() != 1 or flat_ids.dtype not in (torch.int32,
+                                                     torch.int64):
+        raise ValueError(f"flat ids must be (R,) int32/int64, got "
+                         f"{tuple(flat_ids.shape)} {flat_ids.dtype}")
+    if not 0 < num_segments < INT32_MAX or seg_stride < 1:
+        raise ValueError(f"num_segments {num_segments}, seg_stride "
+                         f"{seg_stride}")
+    if flat_ids.shape[0] >= INT32_MAX:
+        raise ValueError(f"{flat_ids.shape[0]} rows: perm is int32")
+    # A segment stride past the last segment drops no row.
+    return min(seg_stride, num_segments + 1)
+
+
+def segment_transpose_reference(flat_ids: torch.Tensor, num_segments: int,
+                                seg_stride: int) -> SegmentTranspose:
+    """Plain version: a stable sort of the ids with the pad rows (id %
+    seg_stride == seg_stride - 1) sorted past every segment, and each
+    segment's start in it."""
+    seg_stride = _segment_args(flat_ids, num_segments, seg_stride)
+    ids = flat_ids.long()
+    keys = torch.where(ids % seg_stride == seg_stride - 1, num_segments, ids)
+    sorted_keys, perm = torch.sort(keys, stable=True)
+    starts = torch.searchsorted(
+        sorted_keys, torch.arange(num_segments + 1, device=ids.device))
+    return SegmentTranspose(perm.int(), starts.int())
+
+
+def segment_transpose(flat_ids: torch.Tensor, num_segments: int,
+                      seg_stride: int) -> SegmentTranspose:
+    """`segment_transpose_reference`'s function by the transpose kernels
+    (csrc/segsum.cu: count, scan, fill, order and, for segments of
+    thousands of rows, the long pass; one call) on CUDA tensors, bitwise
+    equal on perm[:starts[-1]] and starts; CPU tensors take the plain
+    version."""
+    if flat_ids.device.type == "cpu":
+        return segment_transpose_reference(flat_ids, num_segments,
+                                           seg_stride)
+    if flat_ids.device.type != "cuda":
+        raise ValueError(f"no segment transpose for device "
+                         f"{flat_ids.device}")
+    seg_stride = _segment_args(flat_ids, num_segments, seg_stride)
+    flat_ids = flat_ids.contiguous()
+    rows, dev = flat_ids.shape[0], flat_ids.device
+    perm = torch.empty(rows, dtype=torch.int32, device=dev)
+    if rows == 0:
+        return SegmentTranspose(perm, torch.zeros(
+            num_segments + 1, dtype=torch.int32, device=dev))
+    starts = torch.empty(num_segments + 1, dtype=torch.int32, device=dev)
+    lib = SEGSUM_LIBRARY.load()
+    tmp = torch.empty(lib.regtr_segment_transpose_scratch(
+        rows, num_segments), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.regtr_segment_transpose(
+            flat_ids.data_ptr(), int(flat_ids.dtype == torch.int64), rows,
+            num_segments, seg_stride, starts.data_ptr(), perm.data_ptr(),
+            tmp.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    SEGSUM_LIBRARY.check(err, "segment transpose")
+    segment_transpose.launches += 1
+    return SegmentTranspose(perm, starts)
+
+
+segment_transpose.launches = 0
 
 
 def padded_segment_sum_reference(g: torch.Tensor, flat_ids: torch.Tensor,
                                  num_segments: int, seg_stride: int
                                  ) -> torch.Tensor:
-    """Plain version: fp32 sums of the rows of g (R, C) by flat_ids (R,)
-    into (num_segments, C), zero at pad-row segments
-    (id % seg_stride == seg_stride - 1)."""
+    """Plain version of the whole gather transpose: fp32 sums of the rows of
+    g (R, C) by flat_ids (R,) into (num_segments, C), zero at pad-row
+    segments (id % seg_stride == seg_stride - 1)."""
     out = torch.zeros((num_segments, g.shape[1]), dtype=torch.float32,
                       device=g.device)
     out.index_add_(0, flat_ids, g.float())
@@ -69,94 +160,140 @@ def padded_segment_sum_reference(g: torch.Tensor, flat_ids: torch.Tensor,
     return out * (seg % seg_stride != seg_stride - 1)[:, None]
 
 
-def sorted_padded_segment_sum(g: torch.Tensor, flat_ids: torch.Tensor,
-                              num_segments: int, seg_stride: int
-                              ) -> torch.Tensor:
-    """`padded_segment_sum_reference`'s function by the segsum kernel on
-    CUDA tensors: a stable sort of the ids and each segment's start in it
-    (PyTorch, as the JAX package sorts outside its kernel), then one warp
-    per segment adds its rows in sorted order.  CPU tensors take the plain
-    version.  Returns (num_segments, C) fp32."""
+def segment_sum_reference(g: torch.Tensor, t: SegmentTranspose
+                          ) -> torch.Tensor:
+    """Plain version of the sum over a transpose: fp32 sums of the rows of
+    g (R, C) listed for each segment, in their order -> (S, C)."""
+    num_segments = t.starts.shape[0] - 1
+    lengths = t.starts.diff().long()
+    seg = torch.repeat_interleave(
+        torch.arange(num_segments, device=g.device), lengths)
+    out = torch.zeros((num_segments, g.shape[1]), dtype=torch.float32,
+                      device=g.device)
+    return out.index_add_(0, seg, g.float()[t.perm[:seg.shape[0]].long()])
+
+
+def segment_sum(g: torch.Tensor, t: SegmentTranspose) -> torch.Tensor:
+    """`segment_sum_reference`'s function by the segsum kernel on CUDA
+    tensors: one warp per segment adds its rows in the transpose's order,
+    so the sums are bitwise repeatable.  CPU tensors take the plain
+    version.  g (R, C) fp32 or bf16 -> (S, C) fp32."""
     if g.device.type == "cpu":
-        return padded_segment_sum_reference(g, flat_ids, num_segments,
-                                            seg_stride)
+        return segment_sum_reference(g, t)
     if g.device.type != "cuda":
         raise ValueError(f"no segment sum for device {g.device}")
-    if g.dim() != 2 or flat_ids.shape != g.shape[:1]:
-        raise ValueError(f"expected g (R, C) and ids (R,), got "
-                         f"{tuple(g.shape)} and {tuple(flat_ids.shape)}")
+    perm, starts = t
+    if g.dim() != 2 or perm.shape != g.shape[:1]:
+        raise ValueError(f"expected g (R, C) and perm (R,), got "
+                         f"{tuple(g.shape)} and {tuple(perm.shape)}")
     if g.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"cotangent dtype {g.dtype} not fp32/bf16")
-    if flat_ids.dtype != torch.int64 or flat_ids.device != g.device:
-        raise ValueError("ids must be int64 on the cotangent's device")
-    if num_segments < 1 or seg_stride < 1:
-        raise ValueError(f"num_segments {num_segments}, seg_stride "
-                         f"{seg_stride}")
-    g = g.contiguous()
-    sorted_ids, perm = torch.sort(flat_ids, stable=True)
-    starts = torch.searchsorted(
-        sorted_ids, torch.arange(num_segments + 1, device=g.device))
+    if (perm.dtype != torch.int32 or starts.dtype != torch.int32
+            or perm.device != g.device or starts.device != g.device):
+        raise ValueError("perm and starts must be int32 on the cotangent's "
+                         "device")
+    num_segments = starts.shape[0] - 1
+    g, perm, starts = g.contiguous(), perm.contiguous(), starts.contiguous()
     out = torch.empty((num_segments, g.shape[1]), dtype=torch.float32,
                       device=g.device)
     with torch.cuda.device(g.device):
         err = SEGSUM_LIBRARY.load().regtr_segsum(
             g.data_ptr(), perm.data_ptr(), starts.data_ptr(), out.data_ptr(),
-            num_segments, g.shape[1], seg_stride,
-            int(g.dtype == torch.bfloat16),
+            num_segments, g.shape[1], int(g.dtype == torch.bfloat16),
             torch.cuda.current_stream(g.device).cuda_stream)
     SEGSUM_LIBRARY.check(err, "segment sum")
-    sorted_padded_segment_sum.launches += 1
+    segment_sum.launches += 1
     return out
 
 
-sorted_padded_segment_sum.launches = 0
+segment_sum.launches = 0
+
+
+class GatherIndex:
+    """A table of row indices `inds` (B, ...) in [0, n) into B clouds of n
+    rows each, the last a pad (shadow) row, as the flat ids (int32) of one
+    row gather over the (B * n, C) rows.  The gathers over one neighbor
+    table share one GatherIndex, and with it the table's transpose (the pad
+    rows dropped), built at the first backward that asks for it."""
+
+    builds = 0      # transposes built, on any device (kernel or plain)
+
+    def __init__(self, inds: torch.Tensor, n: int):
+        b = inds.shape[0]
+        if b * n >= INT32_MAX:
+            raise ValueError(f"{b} clouds of {n} rows: flat ids are int32")
+        offs = torch.arange(b, device=inds.device,
+                            dtype=torch.int32)[:, None] * n
+        self.inds, self.n = inds, n
+        self.flat = (inds.reshape(b, -1).int() + offs).reshape(-1)
+        self.num_segments = b * n
+        self._transpose = None
+
+    def transpose(self) -> SegmentTranspose:
+        if self._transpose is None:
+            self._transpose = segment_transpose(self.flat, self.num_segments,
+                                                self.n)
+            GatherIndex.builds += 1
+        return self._transpose
+
+
+def _transposed_sum(g, index: GatherIndex):
+    return segment_sum(g, index.transpose())
+
+
+def _unpadded_sum(g, index: GatherIndex):
+    # a segment stride past the last segment drops no row
+    return segment_sum(g, segment_transpose(
+        index.flat, index.num_segments, index.num_segments + 1))
+
+
+def _plain_sum(g, index: GatherIndex):
+    return padded_segment_sum_reference(g, index.flat, index.num_segments,
+                                        index.n)
 
 
 class _RowGather(torch.autograd.Function):
-    """Flat row gather (`row_gather`) whose backward is the fp32 gather
-    transpose `segsum`; with `padded`, the cotangents of each cloud's last
-    (pad) row are dropped."""
+    """Flat row gather (`row_gather`) by a GatherIndex whose backward is
+    the fp32 gather transpose `segsum(g, index)`."""
 
     @staticmethod
-    def forward(ctx, x, inds, segsum, padded):
+    def forward(ctx, x, index, segsum):
         b, n, c = x.shape
-        offs = torch.arange(b, device=inds.device, dtype=inds.dtype)[:, None]
-        flat = (inds + offs * n).reshape(-1)
-        ctx.save_for_backward(flat)
-        ctx.shape, ctx.segsum, ctx.padded = x.shape, segsum, padded
+        if index.num_segments != b * n:
+            raise ValueError(f"index over {index.num_segments} rows for x "
+                             f"{tuple(x.shape)}")
+        ctx.shape, ctx.index, ctx.segsum = x.shape, index, segsum
         return row_gather(x.reshape(b * n, c).contiguous(),
-                          flat).reshape(b, -1, c)
+                          index.flat).reshape(b, -1, c)
 
     @staticmethod
     def backward(ctx, g):
-        (flat,) = ctx.saved_tensors
         b, n, c = ctx.shape
-        # A segment stride past the last segment drops no row.
-        stride = n if ctx.padded else b * n + 1
-        dx = ctx.segsum(g.reshape(-1, c), flat, b * n, stride)
-        return dx.to(g.dtype).reshape(b, n, c), None, None, None
+        dx = ctx.segsum(g.reshape(-1, c), ctx.index)
+        return dx.to(g.dtype).reshape(b, n, c), None, None
 
 
-def batched_row_gather(x: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
-    """x (B, N, C), inds (B, R) in [0, N) -> (B, R, C), one flat row gather.
-    The backward is the fp32 gather transpose (the segsum kernel on CUDA
-    tensors) over every row, cast back to the cotangent's dtype."""
-    return _RowGather.apply(x, inds, sorted_padded_segment_sum, False)
+def batched_row_gather(x: torch.Tensor, index: GatherIndex) -> torch.Tensor:
+    """x (B, N, C), index over B clouds of N rows -> (B, R, C), one flat
+    row gather.  The backward is the fp32 gather transpose (the transpose
+    and segsum kernels on CUDA tensors) over every row, cast back to the
+    cotangent's dtype."""
+    return _RowGather.apply(x, index, _unpadded_sum)
 
 
-def batched_row_gather_padded(x: torch.Tensor, inds: torch.Tensor
+def batched_row_gather_padded(x: torch.Tensor, index: GatherIndex
                               ) -> torch.Tensor:
     """`batched_row_gather` for operands whose LAST row per cloud is a pad
     (shadow) row whose gradient the caller discards: the backward drops the
-    pad rows' cotangents."""
-    return _RowGather.apply(x, inds, sorted_padded_segment_sum, True)
+    pad rows' cotangents, over the index's kept transpose."""
+    return _RowGather.apply(x, index, _transposed_sum)
 
 
-def batched_row_gather_padded_plain(x: torch.Tensor, inds: torch.Tensor
+def batched_row_gather_padded_plain(x: torch.Tensor, index: GatherIndex
                                     ) -> torch.Tensor:
     """The same gather with the plain gather transpose on any device: what
     a kernel run is compared with."""
-    return _RowGather.apply(x, inds, padded_segment_sum_reference, True)
+    return _RowGather.apply(x, index, _plain_sum)
 
 
 def _pad_row(x: torch.Tensor, value: float) -> torch.Tensor:
@@ -222,10 +359,12 @@ def _apply_from_gathered(infl, inv_n_valid, neighb_x, weights, compute_dtype,
     return out * inv_n_valid[..., None]
 
 
-def kpconv_apply(infl, inv_n_valid, neighb_inds, x, weights,
+def kpconv_apply(infl, inv_n_valid, index: GatherIndex, x, weights,
                  compute_dtype=None, norm: str = "valid"):
-    """Feature path of KPConv given precomputed geometry -> (B, Nq, Cout)."""
+    """Feature path of KPConv given precomputed geometry -> (B, Nq, Cout).
+    `index`: the neighbor table (B, Nq, K) over Ns + 1 rows per cloud."""
     b, ns, cin = x.shape
+    neighb_inds = index.inds
     _, nq, k = neighb_inds.shape
     p = infl.shape[-1]
 
@@ -242,26 +381,28 @@ def kpconv_apply(infl, inv_n_valid, neighb_inds, x, weights,
 
     if compute_dtype is not None:
         x = x.to(compute_dtype)
-    neighb_x = batched_row_gather_padded(
-        _pad_row(x, 0.0), neighb_inds.reshape(b, nq * k)
-    ).reshape(b, nq, k, cin)
+    neighb_x = batched_row_gather_padded(_pad_row(x, 0.0), index).reshape(
+        b, nq, k, cin)
     return _apply_from_gathered(infl, inv_n_valid, neighb_x, weights,
                                 compute_dtype, norm)
 
 
-def kpconv_fused_gather(q_pts, s_pts, neighb_inds, x, x_extra, kernel_pts,
-                        weights, kp_extent: float, influence: str = "linear",
-                        aggregation: str = "sum", compute_dtype=None,
-                        norm: str = "valid"):
+def kpconv_fused_gather(q_pts, s_pts, index: GatherIndex, x, x_extra,
+                        kernel_pts, weights, kp_extent: float,
+                        influence: str = "linear", aggregation: str = "sum",
+                        compute_dtype=None, norm: str = "valid"):
     """KPConv that computes its own geometry from the gathered neighbors.
 
-    x: (B, Ns, Cin) conv features; x_extra: optional (B, Ns, Ce) features
-    max-pooled over the same table (the strided resnet shortcut).
+    index: the neighbor table (B, Nq, K) over Ns + 1 rows per cloud, shared
+    by the feature and coordinate gathers; x: (B, Ns, Cin) conv features;
+    x_extra: optional (B, Ns, Ce) features max-pooled over the same table
+    (the strided resnet shortcut).
 
     Returns (conv_out (B, Nq, Cout), maxpool_out (B, Nq, Ce) or None,
              (infl, inv_n_valid) for reuse by later blocks at this level).
     """
     b, ns, _ = s_pts.shape
+    neighb_inds = index.inds
     _, nq, k = neighb_inds.shape
     cin = x.shape[-1]
     gdtype = compute_dtype if compute_dtype is not None else x.dtype
@@ -269,11 +410,10 @@ def kpconv_fused_gather(q_pts, s_pts, neighb_inds, x, x_extra, kernel_pts,
     feats = x.to(gdtype)
     if x_extra is not None:
         feats = torch.cat([feats, x_extra.to(gdtype)], dim=-1)
-    flat_inds = neighb_inds.reshape(b, nq * k)
-    g = batched_row_gather_padded(_pad_row(feats, 0.0), flat_inds)
+    g = batched_row_gather_padded(_pad_row(feats, 0.0), index)
     g = g.reshape(b, nq, k, feats.shape[-1])
     neighbors = batched_row_gather(
-        _pad_row(s_pts.to(torch.float32), SHADOW_COORD), flat_inds
+        _pad_row(s_pts.to(torch.float32), SHADOW_COORD), index
     ).reshape(b, nq, k, 3)
 
     rel = neighbors - q_pts.to(torch.float32)[:, :, None, :]
@@ -287,12 +427,12 @@ def kpconv_fused_gather(q_pts, s_pts, neighb_inds, x, x_extra, kernel_pts,
     return out, pooled, (infl, inv_n)
 
 
-def max_pool(x, pool_inds, compute_dtype=None):
-    """Max-pool (B, Ns, C) over (B, Nq, K) tables (shadow = Ns, a zero row)."""
+def max_pool(x, index: GatherIndex, compute_dtype=None):
+    """Max-pool (B, Ns, C) over the (B, Nq, K) table of `index` (shadow =
+    Ns, a zero row)."""
     if compute_dtype is not None:
         x = x.to(compute_dtype)
     b, ns, c = x.shape
-    _, nq, k = pool_inds.shape
-    gathered = batched_row_gather_padded(_pad_row(x, 0.0),
-                                         pool_inds.reshape(b, nq * k))
+    _, nq, k = index.inds.shape
+    gathered = batched_row_gather_padded(_pad_row(x, 0.0), index)
     return gathered.reshape(b, nq, k, c).amax(dim=2)

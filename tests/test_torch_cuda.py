@@ -194,11 +194,13 @@ def test_backward_kernels_take_operands_off_16_bytes(cuda, dtype):
 @pytest.mark.parametrize("c,dtype", [(32, "float32"), (33, "float32"),
                                      (192, "float32"), (32, "bfloat16")])
 def test_segsum_kernel_matches_plain_and_repeats(cuda, c, dtype):
-    """The segment-sum kernel against the plain version on a neighbor-like
-    table (shadow rows and empty segments included), and bitwise equal
-    over two runs."""
+    """The gather transpose by the kernels (the ids' transpose, then the
+    segment sum over it) against the plain version on a neighbor-like table
+    (shadow rows and empty segments included), bitwise equal over two runs
+    and to the sum kernel fed the plain transpose."""
     from regtr_tpu_torch.ops.kpconv import (padded_segment_sum_reference,
-                                            sorted_padded_segment_sum)
+                                            segment_sum, segment_transpose,
+                                            segment_transpose_reference)
 
     g = torch.Generator().manual_seed(c)
     b, n, k = 3, 4001, 24
@@ -207,18 +209,85 @@ def test_segsum_kernel_matches_plain_and_repeats(cuda, c, dtype):
     ids = (table.reshape(b, -1) + torch.arange(b)[:, None] * n).reshape(-1)
     rows = torch.randn(ids.shape[0], c, generator=g)
     rows, ids = rows.to(cuda, getattr(torch, dtype)), ids.to(cuda)
-    before = sorted_padded_segment_sum.launches
-    got = sorted_padded_segment_sum(rows, ids, b * n, n)
-    again = sorted_padded_segment_sum(rows, ids, b * n, n)
+    before = (segment_sum.launches, segment_transpose.launches)
+    got = segment_sum(rows, segment_transpose(ids, b * n, n))
+    again = segment_sum(rows, segment_transpose(ids, b * n, n))
+    plain_t = segment_sum(rows, segment_transpose_reference(ids, b * n, n))
     ref = padded_segment_sum_reference(rows, ids, b * n, n)
     torch.cuda.synchronize()
-    assert sorted_padded_segment_sum.launches == before + 2
+    assert (segment_sum.launches, segment_transpose.launches) == (
+        before[0] + 3, before[1] + 2)
     assert got.dtype == torch.float32 and got.shape == (b * n, c)
-    assert torch.equal(got, again)
+    assert torch.equal(got, again) and torch.equal(got, plain_t)
     # fp32 sums of the same rows in another order
     torch.testing.assert_close(got, ref, rtol=1e-5,
                                atol=1e-5 * float(ref.abs().max()))
     assert not got.view(b, n, c)[:, n // 2:].any()   # pad and empty rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("id_dtype", ["int32", "int64"])
+@pytest.mark.parametrize("case", ["neighbors", "long_segment", "all_pad",
+                                  "empty_segments", "no_pad_stride",
+                                  "shadow_rows_kept", "many_long_segments"])
+def test_segment_transpose_kernel_is_stable_sort(cuda, case, id_dtype):
+    """The transpose kernels against the plain version (a stable sort with
+    the pad rows dropped), bitwise on starts and on perm's rows: a
+    neighbor-like table, one segment of 6000 rows, a table of pad rows
+    only, segments no row names, a stride that drops no row, a
+    neighbor-like table whose shadow rows are kept (a segment of ~13 000
+    rows per cloud) and 40 segments of 4097 to 6000 rows among short ones;
+    twice.  Segments of more than 4096 rows take the long pass."""
+    from regtr_tpu_torch.ops.kpconv import (segment_transpose,
+                                            segment_transpose_reference)
+
+    g = torch.Generator().manual_seed(len(case))
+    b, n, stride = 4, 5001, 5001
+    if case == "neighbors":
+        ids = torch.randint(0, n - 1, (b, 40000), generator=g)
+        ids[:, ::3] = n - 1
+        ids = (ids + torch.arange(b)[:, None] * n).reshape(-1)
+    elif case == "long_segment":
+        ids = torch.randint(0, b * n, (50000,), generator=g)
+        ids[torch.randperm(50000, generator=g)[:6000]] = 7
+    elif case == "all_pad":
+        ids = (torch.arange(b) * n + n - 1).repeat_interleave(9000)
+    elif case == "empty_segments":
+        ids = 2 * torch.randint(0, b * n // 2, (30000,), generator=g)
+    elif case == "no_pad_stride":
+        ids = torch.randint(0, b * n, (30000,), generator=g)
+        stride = b * n + 1
+    elif case == "shadow_rows_kept":
+        ids = torch.randint(0, n - 1, (b, 40000), generator=g)
+        ids[:, ::3] = n - 1
+        ids = (ids + torch.arange(b)[:, None] * n).reshape(-1)
+        stride = b * n + 1
+    else:
+        ids = torch.randint(0, b * n, (260000,), generator=g)
+        # 40 segments of 4097 to 6000 rows (none a pad row's)
+        lengths = torch.randint(4097, 6001, (40,), generator=g)
+        ids[:int(lengths.sum())] = torch.repeat_interleave(
+            torch.arange(40) * 97, lengths)
+        ids = ids[torch.randperm(ids.shape[0], generator=g)]
+    ids = ids.to(cuda, getattr(torch, id_dtype))
+    before = segment_transpose.launches
+    got = segment_transpose(ids, b * n, stride)
+    again = segment_transpose(ids, b * n, stride)
+    ref = segment_transpose_reference(ids, b * n, stride)
+    torch.cuda.synchronize()
+    assert segment_transpose.launches == before + 2
+    m = int(ref.starts[-1])
+    for t in (got, again):
+        assert t.perm.dtype == t.starts.dtype == torch.int32
+        assert torch.equal(t.starts, ref.starts)
+        assert torch.equal(t.perm[:m], ref.perm[:m])
+    if case == "all_pad":
+        assert m == 0
+    if case == "long_segment":
+        assert int(ref.starts.diff().max()) >= 6000
+    if case in ("shadow_rows_kept", "many_long_segments"):
+        assert int((ref.starts.diff() > 4096).sum()) == (
+            b if case == "shadow_rows_kept" else 40)
 
 
 @pytest.mark.cuda
@@ -242,6 +311,32 @@ def test_row_gather_kernel_is_index_select(cuda, c, dtype):
     assert torch.equal(got, row_gather_reference(table, idx))
     assert torch.equal(shifted, row_gather_reference(
         table.view(-1)[1:1 + 3000 * c].view(3000, c), idx % 3000))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c", [1, 2, 3, 4, 7, 8])
+@pytest.mark.parametrize("id_dtype", ["int32", "int64"])
+def test_narrow_row_gather_kernel_is_index_select(cuda, id_dtype, c, dtype):
+    """The narrow rows (at most four vectors narrower than 16 bytes, the
+    coordinate rows among them) through shared memory: bitwise equal to
+    index_select with int32 and int64 indices, for tables, indices and
+    outputs off 16 bytes, and row counts off the block's."""
+    from regtr_tpu_torch.ops.gather import row_gather, row_gather_reference
+
+    g = torch.Generator().manual_seed(c)
+    tdt = getattr(torch, dtype)
+    table = torch.randn(3002, c, generator=g).to(cuda, tdt)
+    idx = torch.randint(0, 3000, (70001 + 4,), generator=g).to(
+        cuda, getattr(torch, id_dtype))
+    # tables 1 and 2 elements past the allocation's start: narrower vectors
+    shifted = [table.view(-1)[k:k + 3000 * c].view(3000, c) for k in (1, 2)]
+    before = row_gather.launches
+    for tab in (table, *shifted):
+        for ids in (idx[:70001], idx[1:70002], idx[:1], idx[:2049]):
+            assert torch.equal(row_gather(tab, ids),
+                               row_gather_reference(tab, ids.long()))
+    assert row_gather.launches == before + 12
 
 
 @pytest.mark.cuda
@@ -297,8 +392,9 @@ def test_element_gather_kernel_wide_rows(cuda, cols, dtype):
 
 @pytest.mark.cuda
 def test_batched_row_gather_on_the_card(cuda):
-    """batched_row_gather launches K5 forward and K4 backward; both match
-    the CPU (the forward bitwise, the fp32 sums to a few ulps)."""
+    """batched_row_gather launches K5 forward and K4 backward (the ids'
+    transpose and the segment sum); both match the CPU (the forward
+    bitwise, the fp32 sums to a few ulps)."""
     from regtr_tpu_torch.ops import gather, kpconv
 
     g = torch.Generator().manual_seed(0)
@@ -309,13 +405,41 @@ def test_batched_row_gather_on_the_card(cuda):
     for dev in ("cpu", cuda):
         xd = x.to(dev).requires_grad_()
         before = (gather.row_gather.launches,
-                  kpconv.sorted_padded_segment_sum.launches)
-        out = kpconv.batched_row_gather(xd, inds.to(dev))
+                  kpconv.segment_transpose.launches,
+                  kpconv.segment_sum.launches)
+        out = kpconv.batched_row_gather(
+            xd, kpconv.GatherIndex(inds.to(dev), 400))
         (dx,) = torch.autograd.grad(out, xd, cot.to(dev))
         outs[str(dev)] = (out.detach().cpu(), dx.cpu(), (
             gather.row_gather.launches - before[0],
-            kpconv.sorted_padded_segment_sum.launches - before[1]))
+            kpconv.segment_transpose.launches - before[1],
+            kpconv.segment_sum.launches - before[2]))
     (out_c, dx_c, n_c), (out_g, dx_g, n_g) = outs.values()
-    assert n_c == (0, 0) and n_g == (1, 1)
+    assert n_c == (0, 0, 0) and n_g == (1, 1, 1)
     assert torch.equal(out_c, out_g)
     torch.testing.assert_close(dx_g, dx_c, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_batched_row_gather_backward_long_segments(cuda):
+    """batched_row_gather's backward keeps each cloud's last (shadow) row,
+    which most neighbor slots name: segments of ~12 000 rows, ordered by the
+    transpose's long pass.  The gradient against the CPU's, bitwise over two
+    runs on the card."""
+    from regtr_tpu_torch.ops import kpconv
+
+    g = torch.Generator().manual_seed(1)
+    b, n, r = 2, 3000, 20000
+    x = torch.randn(b, n, 8, generator=g)
+    inds = torch.randint(0, n, (b, r), generator=g)
+    inds[:, torch.rand(r, generator=g) < 0.6] = n - 1
+    cot = torch.randn(b, r, 8, generator=g)
+    dxs = []
+    for dev in ("cpu", cuda, cuda):
+        xd = x.to(dev).requires_grad_()
+        out = kpconv.batched_row_gather(
+            xd, kpconv.GatherIndex(inds.to(dev), n))
+        dxs.append(torch.autograd.grad(out, xd, cot.to(dev))[0].cpu())
+    assert torch.equal(dxs[1], dxs[2])
+    torch.testing.assert_close(dxs[1], dxs[0], rtol=1e-5,
+                               atol=1e-5 * float(dxs[0].abs().max()))

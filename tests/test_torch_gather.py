@@ -58,6 +58,49 @@ def test_row_gather_matches_jnp_take(c, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c", [1, 3, 32])
+def test_row_gather_int32_ids_match_jnp_take(c, dtype):
+    """int32 indices (a table's flat ids, ops/kpconv.py GatherIndex) gather
+    the same rows as int64 ones."""
+    rng = np.random.RandomState(c + 7)
+    table = rng.randn(257, c).astype(np.float32)
+    idx = rng.randint(0, 257, 1001).astype(np.int32)
+    tt, jt = both(table, dtype)
+    got = gather.row_gather(tt, torch.from_numpy(idx))
+    ref = jnp.take(jt, jnp.asarray(idx), axis=0)
+    assert got.dtype == tt.dtype and got.shape == (1001, c)
+    np.testing.assert_array_equal(bits(got), bits(ref))
+    np.testing.assert_array_equal(
+        bits(got), bits(gather.row_gather(tt, torch.from_numpy(idx).long())))
+
+
+def test_gather_index_flat_ids():
+    """A table's flat ids: int32, cloud b's rows offset by b * n, shared
+    by the gathers over the table, with its transpose built once; more
+    rows than int32 ids can name are refused."""
+    inds = torch.tensor([[0, 2, 2], [1, 0, 2]])
+    index = kpconv.GatherIndex(inds, 3)
+    assert index.inds is inds
+    assert index.flat.dtype == torch.int32
+    assert index.flat.tolist() == [0, 2, 2, 4, 3, 5]
+    builds = kpconv.GatherIndex.builds
+    first = index.transpose()
+    assert index.transpose() is first
+    assert kpconv.GatherIndex.builds == builds + 1
+    # rows naming a cloud's last row (2 and 5) are pad rows
+    assert first.starts.tolist() == [0, 1, 1, 1, 2, 3, 3]
+    assert first.perm[:3].tolist() == [0, 4, 3]
+    x = torch.arange(12.0).reshape(2, 3, 2)
+    np.testing.assert_array_equal(
+        kpconv.batched_row_gather(x, index).numpy(),
+        x.reshape(6, 2)[index.flat.long()].reshape(2, 3, 2).numpy())
+    with pytest.raises(ValueError, match="index over 6 rows"):
+        kpconv.batched_row_gather(x[:, :2], index)
+    with pytest.raises(ValueError, match="int32"):
+        kpconv.GatherIndex(inds, 2 ** 30)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("axis", [0, 1])
 @pytest.mark.parametrize("shape", [(50, 9), (3, 17, 40)])
 def test_element_gather_matches_take_along_axis(shape, axis, dtype):
@@ -99,7 +142,8 @@ def test_batched_row_gather_and_gradient_match_jax(b, n, r, c):
     g = rng.randn(b, r, c).astype(np.float32)
 
     xt = torch.from_numpy(x).requires_grad_()
-    out = kpconv.batched_row_gather(xt, torch.from_numpy(inds))
+    out = kpconv.batched_row_gather(
+        xt, kpconv.GatherIndex(torch.from_numpy(inds), n))
     (dx,) = torch.autograd.grad(out, xt, torch.from_numpy(g))
 
     jinds = jnp.asarray(inds, jnp.int32)

@@ -86,8 +86,9 @@ def test_fused_gather_matches_jax(levels, dtype, influence, aggregation,
     kp = load_kernel_points(0.0625, 15)
     cd_t = None if dtype == "float32" else torch.bfloat16
     cd_j = None if dtype == "float32" else jnp.bfloat16
+    index = kpconv.GatherIndex(table, s_pts.shape[1] + 1)
     out, pooled, (infl, _) = kpconv.kpconv_fused_gather(
-        q_pts, s_pts, table, torch.from_numpy(x),
+        q_pts, s_pts, index, torch.from_numpy(x),
         torch.from_numpy(xe) if extra else None, torch.from_numpy(kp),
         torch.from_numpy(w), 0.05, influence, aggregation, cd_t, norm)
     jout, jpooled, (jinfl, _) = jkp.kpconv_fused_gather(
@@ -116,22 +117,23 @@ def test_apply_with_shared_geometry_matches_jax(levels, dtype, cin):
     kp = load_kernel_points(0.125, 15)
     cd_t = None if dtype == "float32" else torch.bfloat16
     cd_j = None if dtype == "float32" else jnp.bfloat16
+    index = kpconv.GatherIndex(table, pts.shape[1] + 1)
     infl, inv_n = kpconv._influence_from_rel(
         kpconv.batched_row_gather(
             kpconv._pad_row(pts, kpconv.SHADOW_COORD),
-            table.reshape(table.shape[0], -1)).reshape(*table.shape, 3)
+            index).reshape(*table.shape, 3)
         - pts[:, :, None], table, pts.shape[1], torch.from_numpy(kp), 0.1,
         compute_dtype=cd_t)
     jinfl, jinv = jkp.kpconv_geometry(jl[1].points, jl[1].points,
                                       jl[1].neighbors, jnp.asarray(kp), 0.1,
                                       compute_dtype=cd_j)
     close(infl, jinfl, dtype)
-    out = kpconv.kpconv_apply(infl, inv_n, table, torch.from_numpy(x),
+    out = kpconv.kpconv_apply(infl, inv_n, index, torch.from_numpy(x),
                               torch.from_numpy(w), cd_t)
     jout = jkp.kpconv_apply(jinfl, jinv, jl[1].neighbors, jnp.asarray(x),
                             jnp.asarray(w), cd_j)
     close(out, jout, dtype)
-    pooled = kpconv.max_pool(torch.from_numpy(x), table, cd_t)
+    pooled = kpconv.max_pool(torch.from_numpy(x), index, cd_t)
     jpooled = jkp.max_pool(jnp.asarray(x), jl[1].neighbors, cd_j)
     np.testing.assert_array_equal(pooled.float().numpy(),
                                   np.asarray(jpooled, np.float32))
