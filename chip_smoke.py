@@ -63,7 +63,17 @@ non-zero without one, and without the checkout beside it).  Phases:
    the model at the largest bucket) for both benchmarks: launch counts,
    est.log contents, poses against a direct forward, recall 1.0 for GT
    poses, pairs/s and per-stage times; then `python -m
-   regtr_tpu_torch.test` on the same parameters saved as .npz.
+   regtr_tpu_torch.test` on the same parameters saved as .npz;
+8. the trainer: `python -m regtr_tpu_torch.train`'s main in-process on
+   conf/synthetic_3dmatch.yaml at its published width (16384 points,
+   batch 2, bf16, 11 blocks, 6 layers) with the data cut to 16 synthetic
+   items and 4 for validation: sanity validation, 8 steps with validation
+   and best-by-score checkpoints every 4, a restore into a fresh model and
+   optimizer (bitwise the trained run's tensors), then a resume from the
+   run's ckpt/ to step 10; every loss finite, no update skipped, no failed
+   step, the same kernels launched by every step (K1, K2, K3, K4 with its
+   transpose and K5a; not K5b), the median step time, the loader's wait
+   and the validation time.
 
 It imports torch, numpy, scipy and regtr_tpu_torch, nothing of JAX.
 
@@ -77,6 +87,7 @@ import contextlib
 import json
 import os
 import pickle
+import re
 import shutil
 import statistics
 import subprocess
@@ -107,6 +118,17 @@ TOL_BWD = {"bfloat16": 2e-2, "float32": 2e-5}
 TOL_LSE = 1e-4        # abs, fp32 logsumexp of the same scores
 TOL_SEGSUM = 1e-5     # x largest |sum|: fp32 sums of the same rows
 TOL_GRAD = 1e-3       # relative L2 per parameter, kernels vs plain (fp32)
+# The same in bf16 (phase 8), the key projections' biases aside: both
+# routes round the operands to bf16 (2^-8 relative), and a kernel's fp32
+# sums in another order move some roundings by one bf16 step, which the
+# layers after it carry on (measured on the H100, synthetic_3dmatch's last
+# batch: 6.3e-2 at worst, in the attention's q and k projections, whose
+# gradients pass through softmax's cancelling dS; 5.9e-3 the median leaf).
+# Beside it, the kernels' gradients as a whole may lie no more than
+# TOL_BF16_NOISE times as far from an fp32 step's (the plain route, fp32
+# operands) as the plain route's bf16 gradients do.
+TOL_GRAD_BF16 = 0.25
+TOL_BF16_NOISE = 1.5
 DEVICE = "cuda"
 # NVIDIA's data sheet, H100 SXM at 700 W:
 PEAK_BYTES = 3.35e12
@@ -282,12 +304,13 @@ def _excess(got, ref, tol, scale=None):
     return float((err - tol * ref.abs()).max()) / max(scale, 1e-30)
 
 
-def phase_attention(train_n, protocol_n):
+def phase_attention(train_n, protocol_n, trainer_shape):
     """K1 (with lse) and the backward kernels against the plain versions.
 
     Returns the numbers of the kernels line: K1 at the inference shape in
     bf16 and at the training and protocol shapes in fp32, the backward
-    kernels at the training shape."""
+    kernels at the training shape, and all three at the trainer's shape
+    (phase 8's, bf16)."""
     import torch
     import torch.nn.functional as F
 
@@ -302,7 +325,7 @@ def phase_attention(train_n, protocol_n):
     # the test protocol: 2 clouds x 8 heads at the model's largest bucket
     protocol_shape = (16, protocol_n, protocol_n, 32)
     result = {}
-    for shape in [infer_shape, train_shape, protocol_shape,
+    for shape in [infer_shape, train_shape, protocol_shape, trainer_shape,
                   (8, 1000, 1313, 16), (5, 777, 2049, 64), (3, 65, 7, 32),
                   (2, 17, 9, 16), (4, 2241, 130, 32)]:
         for name in ("bfloat16", "float32"):
@@ -367,7 +390,8 @@ def phase_attention(train_n, protocol_n):
                     shape, name, q, k, v, bias, scale, err, F)}
             if (shape, name) not in ((infer_shape, "bfloat16"),
                                      (train_shape, "float32"),
-                                     (train_shape, "bfloat16")):
+                                     (train_shape, "bfloat16"),
+                                     (trainer_shape, "bfloat16")):
                 continue
             result[(shape, name)] = _time_attention(
                 shape, name, q, k, v, bias, do, out, lse, delta, scale, errs,
@@ -1204,6 +1228,36 @@ def plain_row_gather():
         kpconv.row_gather = gather.row_gather
 
 
+@contextlib.contextmanager
+def kernel_route(route):
+    """The training path with some kernels swapped for their plain
+    versions: "kernels" (none), "index_select" (K5's row gather),
+    "plain transpose" (the transpose kernels: a stable sort), "plain"
+    (the attention, the row gather and the gather transpose)."""
+    from regtr_tpu_torch.nn import transformer
+    from regtr_tpu_torch.ops import attention, kpconv
+
+    kernel_attention = transformer.flash_masked_attention
+    kernel_gather = kpconv.batched_row_gather_padded
+    kernel_transpose = kpconv.segment_transpose
+    with contextlib.ExitStack() as stack:
+        if route in ("plain", "index_select"):
+            stack.enter_context(plain_row_gather())
+        if route == "plain transpose":
+            kpconv.segment_transpose = kpconv.segment_transpose_reference
+        if route == "plain":
+            transformer.flash_masked_attention = \
+                attention.flash_masked_attention_plain
+            kpconv.batched_row_gather_padded = \
+                kpconv.batched_row_gather_padded_plain
+        try:
+            yield
+        finally:
+            transformer.flash_masked_attention = kernel_attention
+            kpconv.batched_row_gather_padded = kernel_gather
+            kpconv.segment_transpose = kernel_transpose
+
+
 def _in_turns(fns, names, reps=1):
     """Median ms of each fn (CUDA events; `reps` calls per run, see
     cuda_ms), in turns: in order, then in reverse; -> {name: [first,
@@ -1393,8 +1447,6 @@ def phase_training():
     from regtr_tpu_torch.config import threedmatch_config
     from regtr_tpu_torch.data.collate import collate_pairs
     from regtr_tpu_torch.models import create_model
-    from regtr_tpu_torch.nn import transformer
-    from regtr_tpu_torch.ops import attention, kpconv
     from regtr_tpu_torch.train import steps
     from regtr_tpu_torch.train.optim import Optimizer
 
@@ -1434,9 +1486,6 @@ def phase_training():
     # transpose kernel replaced by its plain version (a stable sort), and
     # once more
     grads = {}
-    kernel_attention = transformer.flash_masked_attention
-    kernel_gather = kpconv.batched_row_gather_padded
-    kernel_transpose = kpconv.segment_transpose
     kernels = {"flash_attn_fwd": n_attn, "flash_attn_bwd_dkv": n_attn,
                "flash_attn_bwd_dq": n_attn, "segsum": n_segsum,
                "segment_transpose": n_transposes, "row_gather": gathers,
@@ -1445,30 +1494,16 @@ def phase_training():
              "plain transpose": dict(kernels, segment_transpose=0),
              "plain": dict.fromkeys(kernels, 0), "kernels again": kernels}
     for route, want in wants.items():
-        with contextlib.ExitStack() as stack:
-            if route in ("plain", "index_select"):
-                stack.enter_context(plain_row_gather())
-            if route == "plain transpose":
-                kpconv.segment_transpose = kpconv.segment_transpose_reference
-            if route == "plain":
-                transformer.flash_masked_attention = \
-                    attention.flash_masked_attention_plain
-                kpconv.batched_row_gather_padded = \
-                    kpconv.batched_row_gather_padded_plain
-            try:
-                before = _launch_counts()
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                losses, _ = steps.forward_loss(model, batch)
-                g, _ = steps.backward(opt, losses["total"])
-                torch.cuda.synchronize()
-                elapsed = time.perf_counter() - t
-                grads[route] = g
-                used = {k: v - before[k] for k, v in _launch_counts().items()}
-            finally:
-                transformer.flash_masked_attention = kernel_attention
-                kpconv.batched_row_gather_padded = kernel_gather
-                kpconv.segment_transpose = kernel_transpose
+        with kernel_route(route):
+            before = _launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            losses, _ = steps.forward_loss(model, batch)
+            g, _ = steps.backward(opt, losses["total"])
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t
+            grads[route] = g
+            used = {k: v - before[k] for k, v in _launch_counts().items()}
         log(f"first step, {route}: loss {losses['total'].item():.5f}, "
             f"forward + backward {elapsed * 1e3:.1f} ms, launches {used}")
         check(used == want, f"{route} route launched {want}")
@@ -1854,6 +1889,431 @@ def phase_protocol():
     return result
 
 
+# Phase 8's configuration: the synthetic 3DMatch-scale training config at
+# its published width; only the data scale (the items, the steps) is cut.
+TRAINER_CONFIG = ROOT / "conf" / "synthetic_3dmatch.yaml"
+TRAINER_DATA = {"synthetic_items": 16, "synthetic_val_items": 4}
+TRAINER_STEPS = (8, 10)         # the first run's niter, the resumed run's
+# the kernels of the trainer's path (every one but K5b)
+TRAINER_KERNELS = ("flash_attn_fwd", "flash_attn_bwd_dkv",
+                   "flash_attn_bwd_dq", "segsum", "segment_transpose",
+                   "row_gather")
+TRAINER_TIMED_STEPS = 5     # the trainer's step back to back, synchronized
+
+
+def trainer_attention_shape(cfg):
+    """(B * H, N, N, d) of the trainer's attention calls: both clouds of
+    each pair of a train batch times the heads, at the model's coarse
+    capacity for the largest cloud the config makes."""
+    from regtr_tpu_torch.data.collate import pick_bucket
+    from regtr_tpu_torch.ops.pyramid import make_pyramid_spec
+
+    n = make_pyramid_spec(cfg, pick_bucket(cfg["num_points"],
+                                           cfg["buckets"])).capacities[-1]
+    return (2 * cfg["train_batch_size"] * cfg["nhead"], n, n,
+            cfg["d_embed"] // cfg["nhead"])
+
+
+def derived_config(src, dst, **values):
+    """The YAML text of src with each `key: value` line of `values`
+    replaced (the machines the port runs on have no PyYAML)."""
+    text = src.read_text()
+    for key, value in values.items():
+        text, n = re.subn(rf"^(\s+{key}:).*$", rf"\g<1> {value}", text,
+                          flags=re.M)
+        if n != 1:
+            raise SystemExit(f"FAILED: {key} appears {n} times in {src}")
+    dst.write_text(text)
+    return dst
+
+
+@contextlib.contextmanager
+def recorded_train_steps(record, latest):
+    """Every train step the trainer builds appends (its total loss as a
+    tensor, update_skipped, the kernels' launches within it) to
+    `record`; reading the launch counts costs no sync.  `latest` keeps the
+    latest step function, its batch, model and optimizer."""
+    from regtr_tpu_torch.train import trainer
+
+    real = trainer.make_train_step
+
+    def make(model, optimizer, cfg):
+        step = real(model, optimizer, cfg)
+
+        def run(batch):
+            before = _launch_counts()
+            metrics = step(batch)
+            after = _launch_counts()
+            record.append((metrics["total"].detach(),
+                           metrics["update_skipped"],
+                           {k: after[k] - before[k] for k in after}))
+            latest.update(step=step, batch=batch, model=model,
+                          optimizer=optimizer)
+            return metrics
+
+        return run
+
+    trainer.make_train_step = make
+    try:
+        yield
+    finally:
+        trainer.make_train_step = real
+
+
+@contextlib.contextmanager
+def held_to_plain(found):
+    """Every kernel launch of the training path, held to its plain version
+    on the same inputs as it happens: the attention forward (out and lse)
+    and backward within TOL and TOL_BWD of the operands' dtype (as phase 3
+    holds them), the row gather and the segment transpose bitwise, the
+    segment sum within TOL_SEGSUM of its largest |sum|.  found[(kernel,
+    shape, dtype)] = (launches, largest |difference|, all within)."""
+    import torch
+
+    from regtr_tpu_torch.ops import attention, kpconv
+    from regtr_tpu_torch.ops.gather import row_gather_reference
+
+    def note(name, shape, dtype, err, ok):
+        key = (name, tuple(shape), str(dtype)[6:])
+        calls, worst, good = found.get(key, (0, 0.0, True))
+        found[key] = (calls + 1, max(worst, err), good and bool(ok))
+
+    def max_err(a, b):
+        return float((a.float() - b.float()).abs().max()) if a.numel() else 0.
+
+    real = dict(fwd=attention._kernel_fwd, bwd=attention._bwd,
+                gather=kpconv.row_gather, transpose=kpconv.segment_transpose,
+                sum=kpconv.segment_sum)
+
+    def fwd(q, k, v, bias, scale, want_lse):
+        out, lse = real["fwd"](q, k, v, bias, scale, want_lse)
+        ref, ref_lse = attention.flash_masked_attention_reference(
+            q, k, v, bias, scale, return_lse=True)
+        tol = TOL[str(q.dtype)[6:]]
+        ok = _excess(out, ref, tol) <= tol
+        if lse is not None:
+            ok = ok and float(((lse - ref_lse).abs() - 1e-6 * ref_lse.abs())
+                              .max()) <= TOL_LSE
+        note("flash_attn_fwd", q.shape, q.dtype, max_err(out, ref), ok)
+        return out, lse
+
+    def bwd(q, k, v, bias, o, lse, do, scale, want_dbias):
+        got = real["bwd"](q, k, v, bias, o, lse, do, scale, want_dbias)
+        refs = attention.flash_masked_attention_bwd_reference(
+            q, k, v, bias, o, lse, do, scale)
+        tol = TOL_BWD[str(q.dtype)[6:]]
+        for name, pairs in (("flash_attn_bwd_dq", [(got[0], refs[0])]),
+                            ("flash_attn_bwd_dkv", list(zip(got[1:],
+                                                            refs[1:])))):
+            pairs = [(g, r) for g, r in pairs if g is not None]
+            note(name, q.shape, q.dtype, max(max_err(g, r) for g, r in pairs),
+                 all(_excess(g, r, tol, max(float(r.float().abs().max()), 1.))
+                     <= tol for g, r in pairs))
+        return got
+
+    def gather(table, idx):
+        out = real["gather"](table, idx)
+        same = torch.equal(out, row_gather_reference(table, idx))
+        note("row_gather", (idx.shape[0], table.shape[1]), table.dtype,
+             0.0 if same else float("inf"), same)
+        return out
+
+    def transpose(ids, num, stride):
+        t = real["transpose"](ids, num, stride)
+        ref = kpconv.segment_transpose_reference(ids, num, stride)
+        m = int(ref.starts[-1])
+        same = (torch.equal(t.starts, ref.starts)
+                and torch.equal(t.perm[:m], ref.perm[:m]))
+        note("segment_transpose", ids.shape, ids.dtype,
+             0.0 if same else float("inf"), same)
+        return t
+
+    def segsum(g, t):
+        out = real["sum"](g, t)
+        ref = kpconv.segment_sum_reference(g, t)
+        err = max_err(out, ref)
+        note("segsum", g.shape, g.dtype, err,
+             err <= TOL_SEGSUM * float(ref.abs().max()))
+        return out
+
+    # kpconv's own kernels count their launches under their module names,
+    # which the wrappers take meanwhile: fold those counts back on exit
+    transpose.launches = segsum.launches = 0
+    attention._kernel_fwd, attention._bwd = fwd, bwd
+    kpconv.row_gather, kpconv.segment_transpose = gather, transpose
+    kpconv.segment_sum = segsum
+    try:
+        yield
+    finally:
+        attention._kernel_fwd, attention._bwd = real["fwd"], real["bwd"]
+        kpconv.row_gather = real["gather"]
+        kpconv.segment_transpose = real["transpose"]
+        kpconv.segment_sum = real["sum"]
+        real["transpose"].launches += transpose.launches
+        real["sum"].launches += segsum.launches
+
+
+@contextlib.contextmanager
+def fp32_operands(model):
+    """The model with every module's compute_dtype (bf16) unset: its
+    operands stay fp32."""
+    mods = [m for m in model.modules()
+            if getattr(m, "compute_dtype", None) is not None]
+    saved = [m.compute_dtype for m in mods]
+    for m in mods:
+        m.compute_dtype = None
+    try:
+        yield
+    finally:
+        for m, dtype in zip(mods, saved):
+            m.compute_dtype = dtype
+
+
+def trainer_kernels_against_plain(latest, per_step, trainer_shape):
+    """The trainer's model on its last batch, one forward and backward per
+    route (no update): with every kernel launch held to its plain version
+    (held_to_plain), the kernels once more, the plain route, and the plain
+    route on fp32 operands; the gradients bitwise repeatable, within
+    TOL_GRAD_BF16 (relative L2, leaf by leaf) of the plain route's, and
+    no more than TOL_BF16_NOISE times as far from the fp32 step's as the
+    plain route's.  Returns the distances and the shapes checked."""
+    import torch
+
+    from regtr_tpu_torch.train import steps
+
+    model, opt, batch = latest["model"], latest["optimizer"], latest["batch"]
+    check(model.spec.capacities[-1] == trainer_shape[1],
+          f"the trainer's model has phase 3's trainer shape: coarse "
+          f"capacity {model.spec.capacities[-1]}, {trainer_shape}")
+    found, grads = {}, {}
+    for route in ("kernels", "kernels again", "plain", "plain fp32"):
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(kernel_route(
+                "kernels" if route.startswith("kernels") else "plain"))
+            if route == "kernels":
+                stack.enter_context(held_to_plain(found))
+            if route == "plain fp32":
+                stack.enter_context(fp32_operands(model))
+            before = _launch_counts()
+            losses, _ = steps.forward_loss(model, batch)
+            grads[route], _ = steps.backward(opt, losses["total"])
+            torch.cuda.synchronize()
+        used = {k: v - before[k] for k, v in _launch_counts().items()}
+        want = (per_step if route.startswith("kernels")
+                else dict.fromkeys(per_step, 0))
+        log(f"trainer's last batch, {route}: loss "
+            f"{float(losses['total'].detach()):.5f}, launches {used}")
+        check(used == want, f"{route} route launched {want}")
+    for (name, shape, dtype), (calls, err, ok) in sorted(found.items()):
+        log(f"  {name} {list(shape)} {dtype}: {calls} launches, largest "
+            f"|kernel - plain| {err:.3e}")
+    bh, n, _, d = trainer_shape
+    check(all(ok for *_, ok in found.values())
+          and {k[0] for k in found} == set(TRAINER_KERNELS)
+          and all(sum(c for (nm, *_), (c, *_) in found.items() if nm == name)
+                  == per_step[name] for name in TRAINER_KERNELS)
+          and ("flash_attn_fwd", (bh, n, d), "bfloat16") in found,
+          f"each of the step's {sum(per_step.values())} launches of "
+          f"{len(TRAINER_KERNELS)} kernels at {len(found)} (kernel, shape, "
+          f"dtype) within its tolerance of its plain version on the same "
+          f"inputs, the attention at {trainer_shape} bfloat16")
+    check(all(torch.equal(a, b) for a, b in zip(grads["kernels"],
+                                                 grads["kernels again"])),
+          f"the trainer's gradients, kernels vs kernels again: bitwise equal "
+          f"over all {len(grads['kernels'])} parameters")
+    # a key projection's bias shifts each query's scores by one constant,
+    # which the softmax takes out: its gradient is 0 in exact arithmetic,
+    # and what either route gives there is rounding alone
+    names = [nm for nm, _ in model.named_parameters()]
+    noise = [(float(a.norm()), float(b.norm())) for nm, a, b in zip(
+        names, grads["kernels"], grads["plain"]) if nm.endswith("k_proj.bias")]
+    errs = sorted(((rel_l2(a, b), nm) for nm, a, b in
+                   zip(names, grads["kernels"], grads["plain"])
+                   if float(b.norm()) > 1e-6
+                   and not nm.endswith("k_proj.bias")), reverse=True)
+    flat = {route: torch.cat([g.reshape(-1) for g in gs])
+            for route, gs in grads.items()}
+    whole = rel_l2(flat["kernels"], flat["plain"])
+    from_fp32 = {route: rel_l2(flat[route], flat["plain fp32"])
+                 for route in ("kernels", "plain")}
+    far = sorted(((float((a - b).norm()), nm) for nm, a, b in zip(
+        names, grads["plain"], grads["plain fp32"])), reverse=True)[:3]
+    log("  the plain route, bf16 vs fp32 operands: the largest leaf "
+        "differences " + ", ".join(f"{nm} {diff:.3e}" for diff, nm in far)
+        + f" (of {float((flat['plain'] - flat['plain fp32']).norm()):.3e} "
+        f"over a norm of {float(flat['plain fp32'].norm()):.3e})")
+    median_norm = statistics.median(float(g.norm()) for g in grads["plain"])
+    log("  the 5 farthest leaves: " + ", ".join(
+        f"{nm} {e:.2e}" for e, nm in errs[:5]) + f"; median leaf "
+        f"{statistics.median(e for e, _ in errs):.2e}; all parameters as "
+        f"one vector {whole:.2e}; the {len(noise)} key biases' gradient "
+        f"norms (0 in exact arithmetic): at most "
+        f"{max(a for a, _ in noise):.2e} (kernels), "
+        f"{max(b for _, b in noise):.2e} (plain), against a median leaf "
+        f"norm of {median_norm:.2e}")
+    check(errs[0][0] < TOL_GRAD_BF16,
+          f"the trainer's gradients (bf16), kernels vs plain, leaf by leaf "
+          f"over {len(errs)} parameters (the key biases aside): worst rel "
+          f"L2 {errs[0][0]:.2e} ({errs[0][1]}; tol {TOL_GRAD_BF16})")
+    check(from_fp32["kernels"] <= TOL_BF16_NOISE * from_fp32["plain"],
+          f"the trainer's gradients as one vector, rel L2 from the fp32 "
+          f"step's: kernels {from_fp32['kernels']:.3e}, plain (bf16) "
+          f"{from_fp32['plain']:.3e} (ratio "
+          f"{from_fp32['kernels'] / from_fp32['plain']:.3f}; at most "
+          f"{TOL_BF16_NOISE})")
+    return dict(grad_rel_l2=errs[0][0], grad_rel_l2_all=whole,
+                grad_from_fp32=from_fp32, shapes_checked=len(found))
+
+
+def phase_trainer(trainer_shape):
+    """The trainer's command line in-process at full width: sanity
+    validation, TRAINER_STEPS[0] steps with validation and best-by-score
+    checkpoints, then a resume from the run's ckpt/ to TRAINER_STEPS[1];
+    then its kernels at the shapes of its last batch against their plain
+    versions.  Returns the launch counts of the phase and per train step,
+    and the trainer's numbers."""
+    import logging
+    import tempfile
+
+    import torch
+
+    from regtr_tpu_torch.config import load_config
+    from regtr_tpu_torch.models import create_model
+    from regtr_tpu_torch.train import __main__ as train_cli
+    from regtr_tpu_torch.train.checkpoints import CheckpointManager
+    from regtr_tpu_torch.train.optim import Optimizer
+
+    first, last = TRAINER_STEPS
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_trainer_"))
+    cfg_first = derived_config(TRAINER_CONFIG, work / "first.yaml",
+                               niter=first, **TRAINER_DATA)
+    cfg_last = derived_config(TRAINER_CONFIG, work / "last.yaml",
+                              niter=last, **TRAINER_DATA)
+    cfg = load_config(cfg_first)
+    log(f"== phase 8: the trainer (python -m regtr_tpu_torch.train on "
+        f"{TRAINER_CONFIG.name}: {cfg['num_points']} points, buckets "
+        f"{cfg['buckets']}, batch {cfg['train_batch_size']}, "
+        f"{cfg['compute_dtype']}, {len(cfg['architecture'])} blocks, "
+        f"{cfg['num_encoder_layers']} layers; {TRAINER_DATA}, niter "
+        f"{first}, then resumed to {last})")
+    flags = ["--device", DEVICE, "--nb_sanity_val_steps", "1",
+             "--validate_every", "4", "--summary_every", "2",
+             "--num_workers", "4"]
+    record, latest = [], {}
+    smi = card_line()
+    try:
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        with recorded_train_steps(record, latest):
+            run1 = train_cli.main(["--config", str(cfg_first), "--logdir",
+                                   str(work / "first"), *flags])
+        torch.cuda.synchronize()
+        wall1 = time.perf_counter() - t0
+        (logdir,) = (work / "first").iterdir()
+        saver = CheckpointManager(logdir / "ckpt")
+        check(saver.all_steps() == [4, first]
+              and saver.best_record() is not None,
+              f"checkpoints at steps {saver.all_steps()}, best.json "
+              f"{saver.best_record()}")
+        # a fresh model and optimizer restored from the last checkpoint
+        # hold the trained run's tensors bitwise
+        fresh = create_model(cfg, max(cfg["buckets"]), DEVICE, seed=1)
+        fresh_opt = Optimizer(fresh.parameters(), cfg)
+        live = run1.optimizer
+        check(saver.restore(fresh, fresh_opt) == first
+              and fresh_opt.count == live.count == first
+              and all(torch.equal(a, b) for a, b in zip(fresh_opt.params,
+                                                        live.params))
+              and all(torch.equal(a, b) for a, b in zip(
+                  fresh_opt.mu + fresh_opt.nu, live.mu + live.nu)),
+              f"restored step {first}: parameters, moments and count "
+              f"bitwise the trained run's")
+        del fresh, fresh_opt, live
+
+        t0 = time.perf_counter()
+        with recorded_train_steps(record, latest):
+            run2 = train_cli.main(["--config", str(cfg_last), "--resume",
+                                   str(logdir / "ckpt"), "--logdir",
+                                   str(work / "last"), *flags])
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+        launches = _launch_counts()
+        (logdir2,) = (work / "last").iterdir()
+        check(CheckpointManager(logdir2 / "ckpt").latest_step() == last
+              and run2.optimizer.count == last
+              and f"Resumed from step {first}" in
+              (logdir2 / "log.txt").read_text(),
+              f"the resumed run starts at step {first} and ends at {last}")
+    finally:
+        logger = logging.getLogger("regtr_tpu_torch")
+        for h in logger.handlers:
+            h.close()
+        logger.handlers.clear()
+        shutil.rmtree(work, ignore_errors=True)
+
+    totals = [float(t) for t, _, _ in record]
+    check(len(record) == last and all(np.isfinite(totals)),
+          f"{len(record)} train steps, every loss finite: "
+          + ", ".join(f"{t:.4f}" for t in totals))
+    check(all(s == 0.0 for _, s, _ in record)
+          and run1.skipped_updates == run2.skipped_updates == 0,
+          "no update skipped")
+    check(run1.failed_steps == run2.failed_steps == 0,
+          "the trainer counted 0 failed steps")
+    per_step = record[-1][2]
+    check(all(r[2] == per_step for r in record),
+          f"every train step launches the same kernels: {per_step}")
+    check(all(launches[k] > 0 for k in TRAINER_KERNELS)
+          and launches["element_gather"] == 0,
+          f"launches in the phase: {launches} (K5b: none)")
+    steps_s = run1.timing["step_s"] + run2.timing["step_s"]
+    # each run's first step is cold (its allocations, its first launches)
+    warm = run1.timing["step_s"][1:] + run2.timing["step_s"][1:]
+    median = statistics.median(warm)
+    loop = {k: run1.timing[k] + run2.timing[k]
+            for k in ("loader_wait_s", "validation_s")}
+    busy = sum(steps_s) + loop["loader_wait_s"]
+    log("trainer steps (ms, host clock around each step, its copy to the "
+        "card included): " + "; ".join(
+            f"run {i}: " + " ".join(f"{t * 1e3:.1f}" for t in r.timing[
+                "step_s"]) for i, r in ((1, run1), (2, run2))))
+    log(f"trainer ({smi}): median step {median * 1e3:.1f} ms "
+        f"({1 / median:.3f} steps/s) over the {len(warm)} steps after each "
+        f"run's first (min {min(warm) * 1e3:.1f}, max {max(warm) * 1e3:.1f} "
+        f"ms); waiting on the loader {loop['loader_wait_s']:.2f} s, "
+        f"{loop['loader_wait_s'] / busy:.1%} of the steps' and waits' "
+        f"time, {loop['loader_wait_s'] / (wall1 + wall2):.1%} of the two "
+        f"runs' wall time ({wall1:.1f} + {wall2:.1f} s); validation "
+        f"{loop['validation_s']:.2f} s in all")
+    log(f"trainer launches per train step: {per_step}")
+    held = trainer_kernels_against_plain(latest, per_step, trainer_shape)
+    # the trainer's own step function on its last batch, back to back and
+    # synchronized after each (more updates of the resumed run's model,
+    # after every check): the step without the loop around it
+    alone = []
+    for _ in range(TRAINER_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        latest["step"](latest["batch"])
+        torch.cuda.synchronize()
+        alone.append(time.perf_counter() - t)
+    log(f"the trainer's step alone on its last batch ({smi}): "
+        + " ".join(f"{t * 1e3:.1f}" for t in alone) + f" ms, median "
+        f"{statistics.median(alone) * 1e3:.1f}")
+    per_name = profile_device(lambda: latest["step"](latest["batch"]),
+                              PROFILED_ITERS, "trainer step",
+                              "trainer_trace.json")
+    k4_ms = sum(us for name, us in per_name.items()
+                if any(k in name for k in K4_KERNELS)) / 1e3 / PROFILED_ITERS
+    log(f"gather transpose (K4) in the trainer step's profile: {k4_ms:.3f} "
+        "ms per step")
+    return dict(launches=launches, per_step=per_step, steps=len(steps_s),
+                median_step_ms=median * 1e3,
+                step_alone_ms=statistics.median(alone) * 1e3,
+                loader_wait_share=loop["loader_wait_s"] / busy,
+                validation_s=loop["validation_s"], **held)
+
+
 def main():
     if not (ROOT / "regtr_tpu_torch").is_dir():
         raise SystemExit("FAILED: run chip_smoke.py from a checkout of the "
@@ -1863,10 +2323,11 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("FAILED: torch.cuda.is_available() is false")
-    from regtr_tpu_torch.config import threedmatch_config
+    from regtr_tpu_torch.config import load_config, threedmatch_config
     from regtr_tpu_torch.data.collate import pick_bucket
     from regtr_tpu_torch.ops.pyramid import make_pyramid_spec
 
+    trainer_shape = trainer_attention_shape(load_config(TRAINER_CONFIG))
     cfg = threedmatch_config()
     train_n0 = pick_bucket(N_POINTS, cfg["buckets"])
     train_n = make_pyramid_spec(cfg, train_n0).capacities[-1]
@@ -1874,12 +2335,13 @@ def main():
     protocol_n = make_pyramid_spec(cfg, max(cfg["buckets"])).capacities[-1]
     phase_device()
     phase_build()
-    attn = phase_attention(train_n, protocol_n)
+    attn = phase_attention(train_n, protocol_n, trainer_shape)
     gather_rows, gather_elements = phase_gather(train_n0)
     phase_small_input()
     infer_launches, forwards = phase_main_path()
     train_launches, segsum = phase_training()
     protocol = phase_protocol()
+    trained = phase_trainer(trainer_shape)
     k1 = attn[((64, 1872, 1872, 32), "bfloat16")]
     bwd = attn[((32, train_n, train_n, 32), "float32")]
     k1_other = [dict(what=what, shape=list(shape), dtype="float32",
@@ -1887,6 +2349,13 @@ def main():
                 for what, shape in (
                     ("training", (32, train_n, train_n, 32)),
                     ("protocol", (16, protocol_n, protocol_n, 32)))]
+    at_trainer = attn[(trainer_shape, "bfloat16")]
+
+    def trainer_shape_entry(kernel):
+        """The kernel at the trainer's attention shape, bf16 (phase 3)."""
+        return [dict(what="trainer", shape=list(trainer_shape),
+                     dtype="bfloat16", **at_trainer[kernel])]
+
     fp64 = bwd.pop("fp64")
     k4 = segsum["segsum"]
     k4_shape = [k4.pop("rows"), k4.pop("width")]
@@ -1895,9 +2364,18 @@ def main():
     row.pop("what")
     protocol_launches = {bm: r["launches"]["row_gather"]
                          for bm, r in protocol.items()}
+
+    def trainer_launches(name):
+        """Phase 8's launches of a kernel: over the phase, and per train
+        step."""
+        return dict(trainer_launches=trained["launches"][name],
+                    trainer_launches_per_step=trained["per_step"][name],
+                    trainer_steps=trained["steps"])
+
     src = "regtr_tpu_torch/csrc/"
     log(json.dumps({"kernels": [
         dict(name="flash_attn_fwd", row="K1", route="cuda",
+             **trainer_launches("flash_attn_fwd"),
              source=src + "flash_attn_fwd.cu",
              replaces="regtr_tpu/ops/pallas/attention.py:49",
              launches=infer_launches["flash_attn_fwd"], forwards=forwards,
@@ -1906,34 +2384,40 @@ def main():
                  bm: r["launches"]["flash_attn_fwd"]
                  for bm, r in protocol.items()},
              shape=[64, 1872, 1872, 32], dtype="bfloat16",
-             other_shapes=k1_other, **k1["fwd"]),
+             other_shapes=k1_other + trainer_shape_entry("fwd"),
+             **k1["fwd"]),
         dict(name="flash_attn_bwd_dkv", row="K2", route="cuda",
+             **trainer_launches("flash_attn_bwd_dkv"),
              source=src + "flash_attn_bwd.cu",
              replaces="regtr_tpu/ops/pallas/attention.py:194",
              launches=train_launches["flash_attn_bwd_dkv"],
              steps=TRAIN_STEPS, shape=[32, train_n, train_n, 32],
              dtype="float32", fp64_rel_err={
                  nm: fp64["kernel"][nm] for nm in ("dk", "dv", "dbias")},
-             **bwd["dkv"]),
+             other_shapes=trainer_shape_entry("dkv"), **bwd["dkv"]),
         dict(name="flash_attn_bwd_dq", row="K3", route="cuda",
+             **trainer_launches("flash_attn_bwd_dq"),
              source=src + "flash_attn_bwd.cu",
              replaces="regtr_tpu/ops/pallas/attention.py:232",
              launches=train_launches["flash_attn_bwd_dq"],
              steps=TRAIN_STEPS, shape=[32, train_n, train_n, 32],
              dtype="float32", fp64_rel_err=fp64["kernel"]["dq"],
-             **bwd["dq"]),
+             other_shapes=trainer_shape_entry("dq"), **bwd["dq"]),
         dict(name="segsum", row="K4", route="cuda",
+             **trainer_launches("segsum"),
              source=src + "segsum.cu",
              replaces="regtr_tpu/ops/pallas/segsum.py:60",
              launches=train_launches["segsum"], steps=TRAIN_STEPS,
              shape=k4_shape, dtype="float32", **k4),
         dict(name="segment_transpose", row="K4", route="cuda",
+             **trainer_launches("segment_transpose"),
              source=src + "segsum.cu",
              replaces="regtr_tpu/ops/pallas/segsum.py:205",
              launches=train_launches["segment_transpose"], steps=TRAIN_STEPS,
              infer_launches=infer_launches["segment_transpose"],
              forwards=forwards, id_dtype="int32", **transpose),
         dict(name="row_gather", row="K5a", route="cuda",
+             **trainer_launches("row_gather"),
              source=src + "gather.cu",
              replaces="tools/exp_pallas_gather.py:44",
              also_replaces=["tools/exp_pallas_gather.py:77",
@@ -1947,6 +2431,7 @@ def main():
              steps=TRAIN_STEPS, protocol_launches=protocol_launches,
              other_shapes=gather_rows[1:], **row),
         dict(name="element_gather", row="K5b", route="cuda",
+             **trainer_launches("element_gather"),
              source=src + "gather.cu",
              replaces="tools/exp_pallas_gather3.py:65",
              also_replaces=["tools/exp_pallas_gather4.py:30",

@@ -1,15 +1,16 @@
-"""Data-layer factory (the port's counterpart of regtr_tpu/data/__init__.py)
-for the 3DMatch / 3DLoMatch val and test phases.
+"""Data-layer factory (the port's counterpart of regtr_tpu/data/__init__.py).
 
-The train phase with its augmentation (RigidPerturb, Jitter, ShufflePoints,
-RandomSwap) comes with the trainer (ROADMAP.md Queue A 11); the ModelNet and
-synthetic datasets with their protocol (Queue A 12).
+3DMatch gets [RigidPerturb, Jitter, ShufflePoints, RandomSwap] at train
+time; ModelNet and the synthetic shapes their noise_type pipelines; all
+feed the bucketed dense collate.
 """
 from __future__ import annotations
 
 from functools import partial
 
+from . import transforms as T
 from .collate import collate_pairs, pick_bucket
+from .modelnet import make_modelnet_datasets
 from .prefetch import DataLoader
 from .threedmatch import ThreeDMatchDataset
 
@@ -24,18 +25,20 @@ def get_dataset(cfg, phase: str):
         raise ValueError(f"unknown phase {phase!r}")
     name = cfg.get("dataset", "modelnet")
     if name == "3dmatch":
+        aug = None
         if phase == "train":
-            raise NotImplementedError(
-                "the 3DMatch train phase and its augmentation come with the "
-                "trainer (ROADMAP.md Queue A 11)")
+            aug = T.Compose([
+                T.RigidPerturb(cfg.get("perturb_pose", "small")),
+                T.Jitter(scale=cfg.get("augment_noise", 0.005)),
+                T.ShufflePoints(),
+                T.RandomSwap(),
+            ])
         kwargs = {}
         if cfg.get("metadata_dir"):
             kwargs["metadata_dir"] = cfg["metadata_dir"]
-        return ThreeDMatchDataset(cfg, phase, **kwargs)
+        return ThreeDMatchDataset(cfg, phase, transforms=aug, **kwargs)
     if name in ("modelnet", "synthetic"):
-        raise NotImplementedError(
-            f"dataset {name!r}: the ModelNet datasets and protocol are not "
-            "ported yet (ROADMAP.md Queue A 12)")
+        return make_modelnet_datasets(cfg, phase)
     raise ValueError(f"unknown dataset {name!r}")
 
 

@@ -8,8 +8,8 @@ bounded queue, so the host prepares the next batches while the card runs
 the current one.
 
 One process only: `shard` (the JAX loader's per-host partition of the
-sample indices) must be None until the multi-GPU port (ROADMAP.md Queue A
-14).
+sample indices) must be None until the multi-GPU port (ROADMAP.md Queue A,
+item 6).
 """
 from __future__ import annotations
 
@@ -40,7 +40,7 @@ class DataLoader:
         if shard is not None:
             raise NotImplementedError(
                 "DataLoader(shard=...): one process only until the "
-                "multi-GPU port (ROADMAP.md Queue A 14)")
+                "multi-GPU port (ROADMAP.md Queue A, item 6)")
         self.dataset = dataset
         self.batch_size = batch_size
         self.collate_fn = collate_fn

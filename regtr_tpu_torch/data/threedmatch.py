@@ -1,12 +1,12 @@
-"""3DMatch / 3DLoMatch dataset for the val and test phases (the port's own
-copy of regtr_tpu/data/threedmatch.py; a CPU test holds the samples bitwise
-equal).
+"""3DMatch / 3DLoMatch dataset (the port's own copy of
+regtr_tpu/data/threedmatch.py; CPU tests hold the samples bitwise equal).
 
 Pair metadata comes from the bundled pkl files ({src, tgt, rot, trans,
 overlap}), raw clouds from per-scene .pth files, and the groundtruth
 overlap masks from the precomputed h5 file when it exists, else from
-`compute_overlap`.  The train phase (with its augmentation) comes with the
-trainer: ROADMAP.md Queue A 11.
+`compute_overlap`.  The train phase seeds each sample's augmentation from
+numpy's global random state, as the JAX package does; val and test from
+the sample's index.
 """
 from __future__ import annotations
 
@@ -36,12 +36,10 @@ def _load_pth(path):
 class ThreeDMatchDataset:
     def __init__(self, cfg, phase, transforms=None,
                  metadata_dir=DEFAULT_METADATA_DIR):
-        if phase not in ("val", "test"):
-            raise NotImplementedError(
-                f"3DMatch phase {phase!r}: only val and test are ported; the "
-                "train phase comes with the trainer (ROADMAP.md Queue A 11)")
+        if phase not in ("train", "val", "test"):
+            raise ValueError(f"unknown phase {phase!r}")
         benchmark = cfg.get("benchmark", "3DMatch")
-        if phase == "val":
+        if phase in ("train", "val"):
             info_fname = os.path.join(metadata_dir, f"{phase}_info.pkl")
             pairs_fname = f"{phase}_pairs-overlapmask.h5"
         else:
@@ -82,7 +80,8 @@ class ThreeDMatchDataset:
         return len(self.infos["rot"])
 
     def __getitem__(self, item):
-        rng = np.random.RandomState(item)
+        rng = np.random.RandomState(
+            np.random.randint(2 ** 31) if self.phase == "train" else item)
         pose = se3_np.se3_init(
             self.infos["rot"][item].astype(np.float32),
             self.infos["trans"][item].astype(np.float32),

@@ -6,8 +6,8 @@ groundtruth (`se3_compare`), and the pose appended to its scene's est.log in
 the Redwood format under out_dir/<benchmark>/<scene>/.  Then, when the
 groundtruth trajectories are present, the Predator registration recall.
 
-One process.  The ModelNet protocol (ROADMAP.md Queue A 12) and the
-multi-process est.log merge (Queue A 14) are not ported yet.
+One process.  The ModelNet protocol (ROADMAP.md Queue A, item 4) and the
+multi-process est.log merge (item 6) are not ported yet.
 """
 from __future__ import annotations
 
@@ -47,7 +47,7 @@ def run_test(cfg, model, test_loader, out_dir,
     if dataset_name != "3dmatch":
         raise NotImplementedError(
             f"test protocol for {dataset_name!r}: only 3DMatch/3DLoMatch is "
-            "ported (ModelNet: ROADMAP.md Queue A 12)")
+            "ported (ModelNet: ROADMAP.md Queue A, item 4)")
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     fwd = make_forward(model)

@@ -1,15 +1,18 @@
 """The port's evaluation command line: the 3DMatch / 3DLoMatch test protocol.
 
-    python -m regtr_tpu_torch.test --params params.npz --benchmark 3DMatch \
-        [--config conf.yaml] [--logdir ../logs] [--dev] [--num_workers 4] \
-        [--device cuda]
+    python -m regtr_tpu_torch.test (--resume RUN_OR_CKPT_DIR | --params
+        params.npz) --benchmark 3DMatch [--config conf.yaml] \
+        [--logdir ../logs] [--dev] [--num_workers 4] [--device cuda]
 
-The same surface as the JAX package's test.py: the config is resolved
-next to the parameters when not given, the model is built at the config's
-largest bucket, and the protocol's est.log files, benchmark_report.txt and
-log.txt go to a fresh run directory under --logdir.  --device replaces
---platform: "cuda" (the default) raises where there is no CUDA device; the
-CPU runs only when asked for.
+The same surface as the JAX package's test.py: --resume restores the best
+checkpoint (by validation score) of a run of `python -m
+regtr_tpu_torch.train`, given its run directory or its ckpt/; --params
+loads a flat .npz.  The config is resolved next to either when not given,
+the model is built at the config's largest bucket, and the protocol's
+est.log files, benchmark_report.txt and log.txt go to a fresh run
+directory under --logdir.  --device replaces --platform: "cuda" (the
+default) raises where there is no CUDA device; the CPU runs only when
+asked for.
 """
 from __future__ import annotations
 
@@ -23,10 +26,12 @@ def parse_args(argv=None):
     p.add_argument("--config", type=str,
                    help="Config YAML (default: next to the parameters)")
     p.add_argument("--resume", type=str, default=None,
-                   help="Checkpoint directory (orbax): not supported here")
+                   help="Run directory or checkpoint directory of the "
+                        "port's trainer, or a flat .npz")
     p.add_argument("--params", type=str, default=None,
                    help="Flat .npz params (save_params_npz, or "
-                        "tools/convert_torch_ckpt.py)")
+                        "tools/convert_torch_ckpt.py); alternative to "
+                        "--resume")
     p.add_argument("--benchmark", type=str, default="3DMatch",
                    choices=["3DMatch", "3DLoMatch", "ModelNet", "ModelLoNet"])
     p.add_argument("--logdir", type=str, default="../logs")
@@ -44,31 +49,29 @@ def main(argv=None):
     from .data import get_dataloader
     from .evaluation import run_test
     from .models import create_model
-    from .train.checkpoints import load_params_npz
+    from .train.checkpoints import (CheckpointManager, load_params_npz,
+                                    resolve_ckpt_dir)
     from .train.logging_utils import prepare_logger
 
-    if opt.resume is not None:
-        raise NotImplementedError(
-            "--resume: orbax checkpoints: use --params (the port's own "
-            "checkpoints come with the trainer, ROADMAP.md Queue A 10)")
-    if opt.params is None:
-        sys.exit("--params is required")
+    if opt.resume is None and opt.params is None:
+        sys.exit("one of --resume / --params is required")
+    ckpt_ref = opt.resume or opt.params
     device = torch.device(opt.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: CUDA is not available")
     if opt.config is None:
-        candidate = Path(opt.params).parent / "config.yaml"
+        candidate = Path(ckpt_ref).parent / "config.yaml"
         if not candidate.exists():
-            candidate = Path(opt.params) / "config.yaml"
+            candidate = Path(ckpt_ref) / "config.yaml"
         if not candidate.exists():
-            sys.exit(f"config.yaml not found near {opt.params}")
+            sys.exit(f"config.yaml not found near {ckpt_ref}")
         opt.config = str(candidate)
     cfg = load_config(opt.config)
     cfg["benchmark"] = opt.benchmark
     if opt.benchmark not in ("3DMatch", "3DLoMatch"):
         raise NotImplementedError(
             f"--benchmark {opt.benchmark}: the ModelNet protocol is not "
-            "ported yet (ROADMAP.md Queue A 12)")
+            "ported yet (ROADMAP.md Queue A, item 4)")
     if cfg["dataset"] != "3dmatch":
         sys.exit(f"--benchmark {opt.benchmark} needs a 3dmatch config, got "
                  f"dataset {cfg['dataset']!r}")
@@ -78,8 +81,15 @@ def main(argv=None):
     # Level 0 follows each batch's bucket; levels >= 1 have the capacities
     # of the largest bucket.
     model = create_model(cfg, max(cfg["buckets"]), device)
-    load_params_npz(opt.params, model)
-    logger.info("Loaded .npz params from %s", opt.params)
+    npz_path = opt.params or (
+        opt.resume if str(ckpt_ref).endswith(".npz") else None)
+    if npz_path:
+        load_params_npz(npz_path, model)
+        logger.info("Loaded .npz params from %s", npz_path)
+    else:
+        step = CheckpointManager(resolve_ckpt_dir(opt.resume)).restore(
+            model, best=True)
+        logger.info("Loaded checkpoint at step %d", step)
     results = run_test(cfg, model, test_loader, logdir)
     logger.info("Test results: %s", results)
     return results

@@ -58,7 +58,10 @@ class Optimizer:
     """Clip + AdamW / Adam / SGD over a fixed list of parameters.
 
     `count` is the number of updates taken (optax's step count); a skipped
-    step leaves it, the moments and the parameters untouched.
+    step leaves it, the moments and the parameters untouched.  `torn` is
+    True while an update runs, and stays True when one raised: the
+    parameters and moments may then be half-updated, and only a checkpoint
+    can restore them.
     """
 
     def __init__(self, params, cfg):
@@ -74,6 +77,7 @@ class Optimizer:
         self.clip = float(cfg.get("grad_clip", 0.0) or 0.0)
         self.schedule = make_schedule(cfg)
         self.count = 0
+        self.torn = False
         zeros = [torch.zeros_like(p) for p in self.params]
         if self.name == "SGD":
             self.trace = zeros
@@ -85,6 +89,7 @@ class Optimizer:
     def update(self, grads: List[torch.Tensor], grad_norm: float):
         """One step from `grads` (one per parameter, fp32) whose global
         norm is `grad_norm`.  Modifies `grads`."""
+        self.torn = True
         if self.clip > 0 and grad_norm >= self.clip:
             torch._foreach_div_(grads, grad_norm)
             torch._foreach_mul_(grads, self.clip)
@@ -94,6 +99,7 @@ class Optimizer:
             torch._foreach_mul_(self.trace, self.momentum)
             torch._foreach_add_(self.trace, grads)
             torch._foreach_add_(self.params, self.trace, alpha=-lr)
+            self.torn = False
             return
         torch._foreach_mul_(self.mu, _B1)
         torch._foreach_add_(self.mu, grads, alpha=1.0 - _B1)
@@ -108,3 +114,29 @@ class Optimizer:
         if self.weight_decay:
             torch._foreach_add_(upd, self.params, alpha=self.weight_decay)
         torch._foreach_add_(self.params, upd, alpha=-lr)
+        self.torn = False
+
+    def _moments(self):
+        if self.name == "SGD":
+            return {"trace": self.trace}
+        return {"mu": self.mu, "nu": self.nu}
+
+    def state_dict(self) -> dict:
+        """The update count and the moments (or SGD's trace), as tensors
+        on the parameters' device: what a checkpoint needs to resume."""
+        return {"name": self.name, "count": self.count, **self._moments()}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict):
+        if state["name"] != self.name:
+            raise ValueError(f"optimizer state of {state['name']}, this "
+                             f"optimizer is {self.name}")
+        for key, mine in self._moments().items():
+            theirs = state[key]
+            if len(theirs) != len(mine):
+                raise ValueError(f"{key}: {len(theirs)} tensors for "
+                                 f"{len(mine)} parameters")
+            for t, src in zip(mine, theirs):
+                t.copy_(src)
+        self.count = int(state["count"])
+        self.torn = False

@@ -9,7 +9,7 @@ works around an XLA schedule and has no counterpart here.
 
 batch: {'points' (2B, N, 3), 'mask' (2B, N), 'pose' (B, 3, 4),
         'overlap0' (2B, N)} tensors on the model's device, pairs
-interleaved.
+interleaved (`batch_to_device` makes it from the loader's numpy batch).
 """
 from __future__ import annotations
 
@@ -19,6 +19,13 @@ import torch
 
 from ..core.se3 import se3_compare
 from .optim import Optimizer
+
+BATCH_KEYS = ("points", "mask", "pose", "overlap0")
+
+
+def batch_to_device(batch, device) -> Dict[str, torch.Tensor]:
+    """The collated numpy batch's model inputs as tensors on `device`."""
+    return {k: torch.from_numpy(batch[k]).to(device) for k in BATCH_KEYS}
 
 
 def registration_metrics(pose_pred, pose_gt, cfg, per_pair: bool = False

@@ -33,7 +33,9 @@ from regtr_tpu_torch.data.prefetch import DataLoader
 from regtr_tpu_torch.data.threedmatch import ThreeDMatchDataset
 from regtr_tpu_torch.evaluation import run_test
 from regtr_tpu_torch.models import create_model
-from regtr_tpu_torch.train.checkpoints import load_params_npz, save_params_npz
+from regtr_tpu_torch.train.checkpoints import (CheckpointManager,
+                                               load_params_npz,
+                                               save_params_npz)
 from tests.synth_threedmatch import PAIRS, SCENE, build_root, tiny_cfg
 from tests.test_torch_model import flat_params
 
@@ -157,13 +159,17 @@ def test_loader_batches_match_jax(root, phase, workers):
 
 
 def test_loader_and_dataset_refuse_what_is_not_ported(root):
+    """The loader's per-host shard waits for the multi-GPU port; unknown
+    phases and datasets raise.  (The 3DMatch train phase and the ModelNet
+    and synthetic datasets are ported: tests/test_torch_train_data.py.)"""
     cfg = protocol_cfg(root)
-    with pytest.raises(NotImplementedError, match="Queue A 11"):
-        get_dataset(cfg, "train")
-    with pytest.raises(NotImplementedError, match="Queue A 12"):
-        get_dataset(dict(cfg, dataset="modelnet"), "test")
-    with pytest.raises(NotImplementedError, match="Queue A 14"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         DataLoader([], 1, list, shard=(0, 2))
+    with pytest.raises(ValueError, match="unknown phase"):
+        get_dataset(cfg, "calibration")
+    with pytest.raises(ValueError, match="unknown dataset"):
+        get_dataset(dict(cfg, dataset="kitti"), "test")
+    assert len(get_dataset(cfg, "train")) == len(PAIRS)
 
 
 def write_est_folder(folder, gt_pairs, gt_traj, offsets):
@@ -348,9 +354,37 @@ def test_cli_runs_on_cpu(protocol_runs, root, tmp_path):
     assert "registration_recall" in (logdir / "log.txt").read_text()
 
 
+def test_cli_resume_restores_the_best_checkpoint(protocol_runs, tmp_path):
+    """--resume <run dir>: the checkpoint best.json names (step 2, the
+    protocol's parameters, between two checkpoints of other parameters)
+    gives the est.log that --params of the same weights gives."""
+    cfg = {k: v for k, v in protocol_runs["cfg"].items()
+           if k not in ("benchmark", "config_path")}
+    run = tmp_path / "run"
+    run.mkdir()
+    (run / "config.yaml").write_text(yaml_text(cfg))
+    saver = CheckpointManager(run / "ckpt")
+    model = protocol_runs["model"]
+    for step, seed, score in ((1, 5, 0.2), (2, None, 0.9), (3, 6, 0.5)):
+        saver.save(step, model if seed is None else create_model(
+            protocol_runs["cfg"], N0_MODEL, "cpu", seed=seed), score=score)
+    save_params_npz(tmp_path / "params.npz", model)
+    common = ["--benchmark", "3DMatch", "--device", "cpu", "--num_workers",
+              "0"]
+    port_cli.main(["--resume", str(run), "--logdir", str(tmp_path / "a"),
+                   *common])
+    port_cli.main(["--params", str(tmp_path / "params.npz"), "--config",
+                   str(run / "config.yaml"), "--logdir",
+                   str(tmp_path / "b"), *common])
+    (a,), (b,) = (tmp_path / "a").iterdir(), (tmp_path / "b").iterdir()
+    est = Path("3DMatch") / SCENE / "est.log"
+    assert (a / est).read_text() == (b / est).read_text()
+    assert "Loaded checkpoint at step 2" in (a / "log.txt").read_text()
+
+
 def test_cli_refuses_what_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="orbax"):
-        port_cli.main(["--resume", str(tmp_path)])
+    with pytest.raises(SystemExit, match="one of --resume / --params"):
+        port_cli.main([])
     with pytest.raises(NotImplementedError, match="ModelNet"):
         port_cli.main(["--params", str(tmp_path / "p.npz"), "--config",
                        str(ROOT / "conf" / "modelnet.yaml"), "--benchmark",

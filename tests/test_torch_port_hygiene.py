@@ -34,7 +34,10 @@ def test_port_imports_no_jax_flax_or_yaml():
         "regtr_tpu_torch.data, regtr_tpu_torch.benchmark.predator, "
         "regtr_tpu_torch.train.checkpoints, "
         "regtr_tpu_torch.train.logging_utils, regtr_tpu_torch.evaluation, "
-        "regtr_tpu_torch.test\n"
+        "regtr_tpu_torch.test, regtr_tpu_torch.train.trainer, "
+        "regtr_tpu_torch.train.__main__, regtr_tpu_torch.data.transforms, "
+        "regtr_tpu_torch.data.modelnet, regtr_tpu_torch.data.synthetic, "
+        "regtr_tpu_torch.data.modelnet_transforms\n"
         "from regtr_tpu_torch.config import threedmatch_config\n"
         "from regtr_tpu_torch.models import create_model\n"
         "create_model(threedmatch_config(first_feats_dim=16, d_embed=32, "
@@ -58,9 +61,16 @@ def test_port_imports_no_jax_flax_or_yaml():
         "m = make_train_step(model, Optimizer(model.parameters(), cfg), "
         "cfg)({k: torch.from_numpy(v) for k, v in batch.items()})\n"
         "assert m['update_skipped'] == 0.0, m\n"
+        "from regtr_tpu_torch.config import load_config\n"
+        "from regtr_tpu_torch.data import get_dataset\n"
+        "syn = load_config('conf/synthetic.yaml')\n"
+        "syn.update(num_points=256, synthetic_items=2)\n"
+        "assert get_dataset(syn, 'train')[1]['src_xyz'].shape == (180, 3)\n"
+        # (tqdm is not listed: some torch builds import it themselves; the
+        # source check below keeps the port's own imports of it local)
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'yaml', 'optax', 'orbax', 'regtr_tpu', "
-        "'tools')]\n"
+        "'tools', 'h5py')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -85,6 +95,9 @@ def test_port_sources_do_not_name_jax():
         for line, root in _imported_roots(path):
             assert root not in ("jax", "flax", "optax", "yaml", "regtr_tpu",
                                 "tools"), (path, line)
+            # absent where the port runs: imported only where they are used
+            assert line[:1].isspace() or root not in (
+                "orbax", "tqdm", "h5py"), (path, line)
     # chip_smoke.py, and kernel_variants.py which it imports, run
     # where only torch and numpy are installed: they use the port alone, not
     # the JAX package nor its tools.
