@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's inference path, training step and 3DMatch test
-protocol on one CUDA card.
+"""Drive the PyTorch port's inference path, training step, trainer, test
+protocols and other command lines on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -12,7 +12,8 @@ non-zero without one, and without the checkout beside it).  Phases:
 2. build: one nvcc per kernel source (csrc/flash_attn_fwd.cu,
    flash_attn_bwd.cu, segsum.cu, gather.cu), all at once, into .build/;
 3. attention kernels against their plain PyTorch versions on the card, at
-   the inference, training and protocol shapes and at ragged shapes, bf16
+   the inference, training, protocol, trainer and ModelNet protocol shapes
+   and at ragged shapes, bf16
    and fp32, with a fully masked row: the forward and its lse, the
    backward's dq, dk, dv and dbias (every kernel bitwise equal over two
    launches); CUDA-event times of each kernel, its plain version and
@@ -73,7 +74,26 @@ non-zero without one, and without the checkout beside it).  Phases:
    run's ckpt/ to step 10; every loss finite, no update skipped, no failed
    step, the same kernels launched by every step (K1, K2, K3, K4 with its
    transpose and K5a; not K5b), the median step time, the loader's wait
-   and the validation time.
+   and the validation time;
+9. the ModelNet / ModelLoNet protocols: `python -m regtr_tpu_torch.test`'s
+   main in-process on conf/modelnet.yaml as shipped (fp32, bucket 768, 6
+   layers) with seeded random parameters saved as .npz, on the dataset's
+   synthetic stand-in (the HDF5 shards are not in the repository; the
+   dataset's root a directory of the checkout that does not exist), its
+   test split cut from 256 to 32 pairs: launches per pair (K1 and K5a
+   only), pred_transforms.npy in dataset order, every pose bitwise a direct
+   forward's, finite metrics, the metrics of groundtruth poses, pairs/s
+   and per-pair times; then each kernel launch of one pair held to its
+   plain version and a profile of its forward;
+10. the other command lines: `python -m regtr_tpu_torch.demo` on a
+   ModelNet-size pair written as .ply with --save_attn (12 maps whose rows
+   sum to 1; every output bitwise the run without the hook's) and on a
+   3DMatch-size pair of phase 7's scans; `python -m
+   regtr_tpu_torch.calibrate` on phase 7's data root on the card (3
+   samples, the YAML it writes read back) and on the card and the CPU (1
+   sample, equal results); `python -m regtr_tpu_torch.evaluate_3dmatch`
+   on phase 7's est.log trees (Predator recall as run_test's, DGR 1.0 on
+   the GT logs, individual_errors.xlsx read back).
 
 It imports torch, numpy, scipy and regtr_tpu_torch, nothing of JAX.
 
@@ -304,13 +324,13 @@ def _excess(got, ref, tol, scale=None):
     return float((err - tol * ref.abs()).max()) / max(scale, 1e-30)
 
 
-def phase_attention(train_n, protocol_n, trainer_shape):
+def phase_attention(train_n, protocol_n, trainer_shape, modelnet_shape):
     """K1 (with lse) and the backward kernels against the plain versions.
 
     Returns the numbers of the kernels line: K1 at the inference shape in
-    bf16 and at the training and protocol shapes in fp32, the backward
-    kernels at the training shape, and all three at the trainer's shape
-    (phase 8's, bf16)."""
+    bf16 and at the training, protocol and ModelNet protocol (phase 9's)
+    shapes in fp32, the backward kernels at the training shape, and all
+    three at the trainer's shape (phase 8's, bf16)."""
     import torch
     import torch.nn.functional as F
 
@@ -326,7 +346,7 @@ def phase_attention(train_n, protocol_n, trainer_shape):
     protocol_shape = (16, protocol_n, protocol_n, 32)
     result = {}
     for shape in [infer_shape, train_shape, protocol_shape, trainer_shape,
-                  (8, 1000, 1313, 16), (5, 777, 2049, 64), (3, 65, 7, 32),
+                  modelnet_shape, (8, 1000, 1313, 16), (5, 777, 2049, 64), (3, 65, 7, 32),
                   (2, 17, 9, 16), (4, 2241, 130, 32)]:
         for name in ("bfloat16", "float32"):
             dtype = getattr(torch, name)
@@ -385,7 +405,8 @@ def phase_attention(train_n, protocol_n, trainer_shape):
                       f"{shape} {name} {gname} within tolerance (max abs "
                       f"err {errs[gname]:.3e}, largest |grad| "
                       f"{scale_r:.3e})")
-            if (shape, name) == (protocol_shape, "float32"):
+            if (shape, name) in ((protocol_shape, "float32"),
+                                 (modelnet_shape, "float32")):
                 result[(shape, name)] = {"fwd": _time_forward(
                     shape, name, q, k, v, bias, scale, err, F)}
             if (shape, name) not in ((infer_shape, "bfloat16"),
@@ -1701,27 +1722,27 @@ def write_protocol_root(base):
 
 
 @contextlib.contextmanager
-def timed_protocol(record, stages):
+def timed_protocol(record, stages, also=()):
     """run_test with its forward, est.log writes and scorer timed (the
     forward synchronized), and each forward's inputs and final poses
-    recorded."""
+    recorded; each (module, attribute) of `also` timed into
+    stages[attribute] too (host clock)."""
     import torch
 
     from regtr_tpu_torch import evaluation
     from regtr_tpu_torch.benchmark import predator
     from regtr_tpu_torch.train.steps import make_forward
 
-    saved = (evaluation.make_forward, predator.write_est_log,
-             predator.benchmark)
-
     def timed(name, fn, sync=False):
         def run(*args, **kwargs):
             t = time.perf_counter()
-            out = fn(*args, **kwargs)
-            if sync:
-                torch.cuda.synchronize()
-            stages[name] += time.perf_counter() - t
-            return out
+            try:
+                out = fn(*args, **kwargs)
+                if sync:
+                    torch.cuda.synchronize()
+                return out
+            finally:
+                stages[name] += time.perf_counter() - t
         return run
 
     def recording_forward(model):
@@ -1733,14 +1754,20 @@ def timed_protocol(record, stages):
             return out
         return run
 
-    evaluation.make_forward = recording_forward
-    predator.write_est_log = timed("est_log", predator.write_est_log)
-    predator.benchmark = timed("scorer", predator.benchmark)
+    targets = [(evaluation, "make_forward"), (predator, "write_est_log"),
+               (predator, "benchmark"), *also]
+    saved = [(module, name, getattr(module, name))
+             for module, name in targets]
+    patched = {"make_forward": recording_forward,
+               "write_est_log": timed("est_log", predator.write_est_log),
+               "benchmark": timed("scorer", predator.benchmark)}
+    for module, name, fn in saved:
+        setattr(module, name, patched.get(name) or timed(name, fn))
     try:
         yield
     finally:
-        (evaluation.make_forward, predator.write_est_log,
-         predator.benchmark) = saved
+        for module, name, fn in saved:
+            setattr(module, name, fn)
 
 
 def phase_protocol():
@@ -1851,7 +1878,9 @@ def phase_protocol():
             f"{peak / 2**30:.2f} GiB")
         log(f"{bm} results (random weights, not checked): {results}")
         result[bm] = dict(launches=launches, pairs=n,
-                          pairs_per_s=n / loop)
+                          pairs_per_s=n / loop,
+                          recall=results.get("registration_recall"),
+                          est_dir=out_dir / bm)
 
     # -- the port's command line, on the same parameters saved as .npz,
     # from the upstream working directory (the shipped config's root and
@@ -2172,7 +2201,6 @@ def phase_trainer(trainer_shape):
     then its kernels at the shapes of its last batch against their plain
     versions.  Returns the launch counts of the phase and per train step,
     and the trainer's numbers."""
-    import logging
     import tempfile
 
     import torch
@@ -2245,10 +2273,7 @@ def phase_trainer(trainer_shape):
               (logdir2 / "log.txt").read_text(),
               f"the resumed run starts at step {first} and ends at {last}")
     finally:
-        logger = logging.getLogger("regtr_tpu_torch")
-        for h in logger.handlers:
-            h.close()
-        logger.handlers.clear()
+        close_port_logger()
         shutil.rmtree(work, ignore_errors=True)
 
     totals = [float(t) for t, _, _ in record]
@@ -2314,6 +2339,354 @@ def phase_trainer(trainer_shape):
                 validation_s=loop["validation_s"], **held)
 
 
+# Phase 9's configuration: conf/modelnet.yaml as shipped (fp32, bucket 768,
+# 6 layers), on the dataset's synthetic stand-in, its test split cut from
+# 256 pairs to MODELNET_PAIRS: the per-pair metrics on the host take ~0.14
+# s a pair, and no check of the phase needs more pairs.  The dataset's root
+# is a directory of the checkout that holds no shards, so that no lookup
+# leaves the checkout whatever the working directory.
+MODELNET_CONFIG = ROOT / "conf" / "modelnet.yaml"
+MODELNET_PAIRS = 32
+MODELNET_NO_SHARDS = ROOT / ".build" / "modelnet_no_shards"
+MODELNET_BENCHMARKS = {"ModelNet": [0.7, 0.7], "ModelLoNet": [0.5, 0.5]}
+
+
+def modelnet_attention_shape(cfg):
+    """(B * H, N, N, d) of the ModelNet protocol's attention calls: the two
+    clouds of a test batch times the heads, at the coarse capacity of the
+    model the command line builds (at the largest bucket)."""
+    from regtr_tpu_torch.ops.pyramid import make_pyramid_spec
+
+    n = make_pyramid_spec(cfg, max(cfg["buckets"])).capacities[-1]
+    return (2 * cfg["test_batch_size"] * cfg["nhead"], n, n,
+            cfg["d_embed"] // cfg["nhead"])
+
+
+def close_port_logger():
+    """Detach the handlers the command lines' prepare_logger attached."""
+    import logging
+
+    logger = logging.getLogger("regtr_tpu_torch")
+    for h in logger.handlers:
+        h.close()
+    logger.handlers.clear()
+
+
+def phase_modelnet(modelnet_shape):
+    """The ModelNet and ModelLoNet protocols through `python -m
+    regtr_tpu_torch.test`'s main, in-process, at the full width of
+    conf/modelnet.yaml with seeded random parameters saved as .npz, on
+    MODELNET_PAIRS pairs of the dataset's synthetic stand-in; then one
+    pair's kernel launches against their plain versions, and a profile of
+    its forward.  Returns each benchmark's launches and numbers."""
+    import importlib.util
+
+    import torch
+
+    from regtr_tpu_torch import evaluation
+    from regtr_tpu_torch import test as test_cli
+    from regtr_tpu_torch.config import (dump_yaml_sections, load_config,
+                                        parse_yaml_sections)
+    from regtr_tpu_torch.data import get_dataset
+    from regtr_tpu_torch.data.collate import collate_pairs
+    from regtr_tpu_torch.models import create_model
+    from regtr_tpu_torch.train.checkpoints import save_params_npz
+    from regtr_tpu_torch.train.steps import make_forward
+
+    base = ROOT / ".build" / "modelnet"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    raw = parse_yaml_sections(MODELNET_CONFIG.read_text())
+    raw["dataset"]["synthetic_val_items"] = MODELNET_PAIRS
+    raw["dataset"]["root"] = str(MODELNET_NO_SHARDS)
+    config = base / MODELNET_CONFIG.name
+    config.write_text(dump_yaml_sections(raw))
+    cfg = load_config(config)
+    model = create_model(cfg, max(cfg["buckets"]), DEVICE, seed=0)
+    log(f"== phase 9: the ModelNet / ModelLoNet protocols (python -m "
+        f"regtr_tpu_torch.test on {MODELNET_CONFIG.name} as shipped: "
+        f"{cfg['compute_dtype']}, buckets {cfg['buckets']}, caps "
+        f"{model.spec.capacities}, K {cfg['neighborhood_limits']}, d_embed "
+        f"{cfg['d_embed']}, {cfg['nhead']} heads, "
+        f"{cfg['num_encoder_layers']} layers, "
+        f"{sum(p.numel() for p in model.parameters())} parameters, batch "
+        f"{cfg['test_batch_size']}; the stand-in's test split cut to "
+        f"{MODELNET_PAIRS} pairs)")
+    check(not MODELNET_NO_SHARDS.exists(),
+          f"{MODELNET_NO_SHARDS} (the dataset's root) does not exist")
+    check(model.spec.capacities[-1] == modelnet_shape[1],
+          f"the protocol's model has phase 3's ModelNet shape {modelnet_shape}")
+    npz = base / "params.npz"
+    save_params_npz(npz, model)
+    per_pair = {"flash_attn_fwd": 2 * cfg["num_encoder_layers"],
+                "row_gather": row_gathers_per_forward(cfg)}
+    smi = card_line()
+    result = {}
+    try:
+        for bm, partial in MODELNET_BENCHMARKS.items():
+            dataset = get_dataset(dict(cfg, partial=partial), "test")
+            check(type(dataset).__name__ == "SyntheticShapeDataset",
+                  f"{bm}: the ModelNet HDF5 shards are not in the "
+                  f"repository (root {cfg['root']!r}) and h5py is "
+                  f"{'absent' if importlib.util.find_spec('h5py') is None else 'installed'}"
+                  f" here: the protocol runs on the dataset's synthetic "
+                  f"stand-in, {len(dataset)} test pairs")
+            record = []
+            stages = dict.fromkeys(("forward", "est_log", "scorer", "run_test",
+                                    "_modelnet_metrics_ragged"), 0.0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_launch_counts()
+            with timed_protocol(record, stages, also=[
+                    (evaluation, "run_test"),
+                    (evaluation, "_modelnet_metrics_ragged")]):
+                results = test_cli.main([
+                    "--params", str(npz), "--config", str(config),
+                    "--benchmark", bm, "--logdir", str(base / bm),
+                    "--device", DEVICE, "--num_workers", "4"])
+            launches = _launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            (logdir,) = (base / bm).iterdir()
+            n = len(record)
+            check(n == len(dataset), f"{bm}: {n} pairs, one forward each "
+                  f"(test_batch_size 1)")
+            check(launches == dict(dict.fromkeys(launches, 0), **{
+                k: v * n for k, v in per_pair.items()}),
+                  f"{bm}: launches {launches}, per pair {per_pair}")
+            poses = torch.stack([p for _, _, p in record]).squeeze(1)
+            pred = np.load(logdir / "pred_transforms.npy")
+            check(pred.shape == (n, 3, 4)
+                  and np.array_equal(pred, poses.cpu().numpy()),
+                  f"{bm}: pred_transforms.npy {pred.shape} holds the "
+                  f"forward's poses")
+            for i in (0, n // 2, n - 1):
+                sample = dataset[i]
+                pts, mask, _ = record[i]
+                src = sample["src_xyz"]
+                check(np.array_equal(pts[0, :len(src)].cpu().numpy(), src)
+                      and int(mask[0].sum()) == len(src),
+                      f"{bm}: pose {i} is dataset sample {i}'s ("
+                      f"{len(src)} source points)")
+            with torch.inference_mode():
+                direct = torch.stack([make_forward(model)(p, m)["pose"][-1]
+                                      for p, m, _ in record]).squeeze(1)
+            check(torch.equal(direct, poses), f"{bm}: the protocol's poses "
+                  "bitwise equal a direct make_forward of the same batches")
+            check("chamfer_dist" in results
+                  and all(np.isfinite(v) for v in results.values()),
+                  f"{bm}: every metric finite")
+            # the metrics of groundtruth poses
+            batch, meta = collate_pairs([dataset[i] for i in range(8)],
+                                        cfg["buckets"])
+            gt = evaluation._modelnet_metrics_ragged(batch, meta,
+                                                     batch["pose"])
+            worst = {k: float(np.abs(gt[k]).max())
+                     for k in ("err_r_deg", "err_t", "r_mae", "t_mae")}
+            # err_r_deg is arccos((trace - 1) / 2) of an fp32 rotation times
+            # its transpose: ~0.02 degrees at trace 3 - 1e-7, its floor
+            check(worst["err_r_deg"] <= 0.05
+                  and worst["err_t"] == worst["r_mae"] == worst["t_mae"] == 0,
+                  f"{bm}: compute_metrics on 8 groundtruth poses: largest "
+                  f"errors {worst} (degrees and metres; the isotropic "
+                  f"rotation error's floor on fp32 poses is ~0.02 degrees)")
+            loop = stages["run_test"]
+            metrics = stages["_modelnet_metrics_ragged"]
+            rest = loop - stages["forward"] - metrics
+            log(f"{bm} protocol ({smi}): {n} pairs, {n / loop:.3f} pairs/s "
+                f"over run_test (loading, forward, metrics; host clock); "
+                f"per pair: forward {stages['forward'] / n * 1e3:.2f} ms, "
+                f"metrics {metrics / n * 1e3:.2f} ms, waiting on the loader "
+                f"and the rest {rest / n * 1e3:.2f} ms; peak memory "
+                f"{peak / 2**30:.3f} GiB")
+            log(f"{bm} results (random weights, not checked): {results}")
+            result[bm] = dict(launches=launches, pairs=n,
+                              pairs_per_s=n / loop,
+                              forward_ms=stages["forward"] / n * 1e3,
+                              loader_ms=rest / n * 1e3,
+                              metrics_ms=metrics / n * 1e3,
+                              peak_gib=peak / 2**30)
+    finally:
+        close_port_logger()
+
+    # one pair's kernel launches, each held to its plain version
+    points, mask, _ = record[0]
+    found = {}
+    before = _launch_counts()
+    with held_to_plain(found):
+        make_forward(model)(points, mask)
+    torch.cuda.synchronize()
+    used = {k: v - before[k] for k, v in _launch_counts().items()}
+    for (name, shape, dtype), (calls, err, ok) in sorted(found.items()):
+        log(f"  {name} {list(shape)} {dtype}: {calls} launches, largest "
+            f"|kernel - plain| {err:.3e}")
+    bh, nq, _, d = modelnet_shape
+    check(used == dict(dict.fromkeys(used, 0), **per_pair)
+          and all(ok for *_, ok in found.values())
+          and {k[0] for k in found} == set(per_pair)
+          and all(sum(c for (nm, *_), (c, *_) in found.items() if nm == name)
+                  == per_pair[name] for name in per_pair)
+          and ("flash_attn_fwd", (bh, nq, d), "float32") in found,
+          f"each of one ModelNet pair's {sum(per_pair.values())} launches "
+          f"({len(found)} kernel, shape and dtype) within its tolerance of "
+          f"its plain version on the same inputs, K1 at {modelnet_shape} "
+          f"float32")
+    profile_device(lambda: make_forward(model)(points, mask),
+                   PROFILED_ITERS, "ModelNet forward", "modelnet_trace.json")
+    return result
+
+
+def phase_tools(protocol):
+    """The other command lines on the card: the demo on a ModelNet-size
+    pair with --save_attn and on a 3DMatch-size pair of phase 7's scans,
+    calibrate on phase 7's data root (card and CPU), evaluate_3dmatch on
+    phase 7's est.log trees."""
+    import io
+
+    import torch
+
+    from regtr_tpu_torch import calibrate as calibrate_cli
+    from regtr_tpu_torch import demo as demo_cli
+    from regtr_tpu_torch import evaluate_3dmatch as evaluate_cli
+    from regtr_tpu_torch.config import (dump_yaml_sections, load_config,
+                                        modelnet_config, parse_yaml_sections,
+                                        threedmatch_config)
+    from regtr_tpu_torch.data import get_dataset
+    from regtr_tpu_torch.utils.ply import write_ply
+    from regtr_tpu_torch.utils.xlsx import read_xlsx
+
+    log("== phase 10: the other command lines (demo, calibrate, "
+        "evaluate_3dmatch)")
+    base = ROOT / ".build" / "tools"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    smi = card_line()
+
+    # -- the demo on a ModelNet-size pair, with and without --save_attn
+    cfg = modelnet_config(root=str(MODELNET_NO_SHARDS))
+    sample = get_dataset(cfg, "test")[0]
+    for name, key in (("src", "src_xyz"), ("tgt", "tgt_xyz")):
+        write_ply(base / f"{name}.ply", sample[key], ["x", "y", "z"])
+    pair = ["--src", str(base / "src.ply"), "--tgt", str(base / "tgt.ply"),
+            "--device", DEVICE]
+    per_pair = {"flash_attn_fwd": 2 * cfg["num_encoder_layers"],
+                "row_gather": row_gathers_per_forward(cfg)}
+    runs = {}
+    for flag in ("attn", "plain"):
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        runs[flag] = demo_cli.main(pair + ["--out", str(base / flag)] + (
+            ["--save_attn"] if flag == "attn" else []))
+        torch.cuda.synchronize()
+        runs[flag].update(s=time.perf_counter() - t0,
+                          launches=_launch_counts())
+        check(runs[flag]["launches"] == dict(
+            dict.fromkeys(runs[flag]["launches"], 0), **per_pair),
+              f"demo ({flag}): launches {runs[flag]['launches']}")
+    maps = runs["attn"]["maps"]
+    n = runs["attn"]["outputs"]["kp"].shape[1]
+    want = {f"transformer_encoder/layer_{i}/{kind}"
+            for i in range(cfg["num_encoder_layers"])
+            for kind in ("self_attn", "cross_attn")}
+    row_err = max(float((m.sum(-1) - 1).abs().max()) for m in maps.values())
+    check(set(maps) == want
+          and all(m.shape == (2, cfg["nhead"], n, n)
+                  and m.dtype == torch.float32 for m in maps.values())
+          and row_err <= 1e-5,
+          f"demo --save_attn: {len(maps)} maps of (2, {cfg['nhead']}, {n}, "
+          f"{n}) fp32, every row summing to 1 within {row_err:.1e}")
+    saved = np.load(base / "attn" / "attn.npz")
+    check(sorted(saved.files) == sorted(want), "attn.npz holds the 12 maps")
+    differ = [k for k, v in runs["plain"]["outputs"].items()
+              if k != "levels" and not torch.equal(
+                  v, runs["attn"]["outputs"][k])]
+    check(not differ and all((base / flag / f).exists()
+                             for flag in runs
+                             for f in ("before.ply", "after.ply")),
+          "demo: the pose and every output bitwise the same with the "
+          "attention hook on and off; before.ply and after.ply written")
+    log(f"demo on a ModelNet-size pair ({len(sample['src_xyz'])} and "
+        f"{len(sample['tgt_xyz'])} points, the modelnet preset at bucket "
+        f"{max(cfg['buckets'])}; {smi}): {runs['attn']['s']:.2f} s with "
+        f"--save_attn, {runs['plain']['s']:.2f} s without (model "
+        f"creation, forward, files)")
+
+    # -- the demo on a 3DMatch-size pair of phase 7's scans
+    scans = ROOT / ".build" / "protocol" / "data" / "indoor" / "test" \
+        / "synthroom-0"
+    big = threedmatch_config()
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    run = demo_cli.main(["--src", str(scans / "cloud_bin_1.pth"), "--tgt",
+                         str(scans / "cloud_bin_0.pth"), "--out",
+                         str(base / "3dmatch"), "--device", DEVICE])
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    launches = _launch_counts()
+    check(launches == dict(dict.fromkeys(launches, 0), **{
+        "flash_attn_fwd": 2 * big["num_encoder_layers"],
+        "row_gather": row_gathers_per_forward(big)})
+          and bool(torch.isfinite(run["outputs"]["pose"]).all())
+          and run["maps"] is None,
+          f"demo on a 3DMatch-size pair (the 3dmatch preset, "
+          f"{big['compute_dtype']}): finite pose, launches {launches}, "
+          f"{took:.2f} s ({smi})")
+
+    # -- calibrate on phase 7's data root: on the card over 3 samples into
+    # a YAML file; on the card and on the CPU over 1 (the CPU's exact
+    # neighbor counts on a 19k-point scan take seconds)
+    meta = ROOT / ".build" / "protocol" / "src" / "datasets" / "3dmatch"
+    raw = parse_yaml_sections((ROOT / "conf" / "3dmatch.yaml").read_text())
+    raw["dataset"]["root"] = str(scans.parent.parent)
+    raw["dataset"]["metadata_dir"] = str(meta)
+    cal_yaml = base / "calibrate.yaml"
+    cal_yaml.write_text(dump_yaml_sections(raw))
+    args = ["--config", str(cal_yaml), "--phase", "test"]
+    t0 = time.perf_counter()
+    three = calibrate_cli.main(args + [
+        "--num_samples", "3", "--device", DEVICE, "--output",
+        str(base / "calibrated.yaml")])
+    took = {"card, 3 samples": time.perf_counter() - t0}
+    written = load_config(base / "calibrated.yaml")
+    check(three["num_samples"] == 3 and all(
+        written[k] == three[k] for k in ("neighborhood_limits",
+                                         "level_capacities",
+                                         "cell_capacity")),
+          f"calibrate on 3 test pairs of 19k-point scans on the card: "
+          f"{three}; the written YAML loads to it")
+    one = {}
+    for device in (DEVICE, "cpu"):
+        t0 = time.perf_counter()
+        one[device] = calibrate_cli.main(args + [
+            "--num_samples", "1", "--device", device, "--dry-run"])
+        took[f"{device}, 1 sample"] = time.perf_counter() - t0
+    check(one[DEVICE] == one["cpu"],
+          f"calibrate on 1 test pair: the card's {one[DEVICE]} equals the "
+          f"CPU's (seconds {took}; {smi})")
+
+    # -- evaluate_3dmatch on phase 7's est.log trees
+    for bm, res in protocol.items():
+        gt = str(meta / "benchmarks")
+        printed = {}
+        for method, est in (("predator", res["est_dir"]),
+                            ("dgr", ROOT / ".build" / "protocol" / "gt_est"
+                             / bm)):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                evaluate_cli.main([str(est), "--benchmark", bm, "--gt_dir",
+                                   gt, "--method", method])
+            printed[method] = out.getvalue()
+        recall = float(re.search(r"Mean registration recall: (\S+)",
+                                 printed["predator"]).group(1))
+        rows = read_xlsx(res["est_dir"] / "individual_errors.xlsx")
+        check(abs(recall - res["recall"]) <= 5e-5
+              and "Mean success rate: 1.0000" in printed["dgr"]
+              and rows[0] == ["scene", "src", "tgt", "error", "flag"]
+              and len(rows) == 1 + res["pairs"],
+              f"evaluate_3dmatch {bm}: Predator recall {recall:.4f} as "
+              f"run_test's {res['recall']}; DGR 1.0 on the GT est.logs; "
+              f"individual_errors.xlsx read back, {len(rows) - 1} pairs")
+
+
 def main():
     if not (ROOT / "regtr_tpu_torch").is_dir():
         raise SystemExit("FAILED: run chip_smoke.py from a checkout of the "
@@ -2328,6 +2701,7 @@ def main():
     from regtr_tpu_torch.ops.pyramid import make_pyramid_spec
 
     trainer_shape = trainer_attention_shape(load_config(TRAINER_CONFIG))
+    modelnet_shape = modelnet_attention_shape(load_config(MODELNET_CONFIG))
     cfg = threedmatch_config()
     train_n0 = pick_bucket(N_POINTS, cfg["buckets"])
     train_n = make_pyramid_spec(cfg, train_n0).capacities[-1]
@@ -2335,20 +2709,24 @@ def main():
     protocol_n = make_pyramid_spec(cfg, max(cfg["buckets"])).capacities[-1]
     phase_device()
     phase_build()
-    attn = phase_attention(train_n, protocol_n, trainer_shape)
+    attn = phase_attention(train_n, protocol_n, trainer_shape,
+                           modelnet_shape)
     gather_rows, gather_elements = phase_gather(train_n0)
     phase_small_input()
     infer_launches, forwards = phase_main_path()
     train_launches, segsum = phase_training()
     protocol = phase_protocol()
     trained = phase_trainer(trainer_shape)
+    modelnet = phase_modelnet(modelnet_shape)
+    phase_tools(protocol)
     k1 = attn[((64, 1872, 1872, 32), "bfloat16")]
     bwd = attn[((32, train_n, train_n, 32), "float32")]
     k1_other = [dict(what=what, shape=list(shape), dtype="float32",
                      **attn[(shape, "float32")]["fwd"])
                 for what, shape in (
                     ("training", (32, train_n, train_n, 32)),
-                    ("protocol", (16, protocol_n, protocol_n, 32)))]
+                    ("protocol", (16, protocol_n, protocol_n, 32)),
+                    ("modelnet protocol", modelnet_shape))]
     at_trainer = attn[(trainer_shape, "bfloat16")]
 
     def trainer_shape_entry(kernel):
@@ -2365,6 +2743,17 @@ def main():
     protocol_launches = {bm: r["launches"]["row_gather"]
                          for bm, r in protocol.items()}
 
+    def modelnet_launches(name):
+        """Phase 9's launches of a kernel: over each benchmark's run, and
+        per pair."""
+        return dict(modelnet_launches={bm: r["launches"][name]
+                                       for bm, r in modelnet.items()},
+                    modelnet_launches_per_pair={
+                        bm: r["launches"][name] / r["pairs"]
+                        for bm, r in modelnet.items()},
+                    modelnet_pairs={bm: r["pairs"]
+                                    for bm, r in modelnet.items()})
+
     def trainer_launches(name):
         """Phase 8's launches of a kernel: over the phase, and per train
         step."""
@@ -2376,6 +2765,7 @@ def main():
     log(json.dumps({"kernels": [
         dict(name="flash_attn_fwd", row="K1", route="cuda",
              **trainer_launches("flash_attn_fwd"),
+             **modelnet_launches("flash_attn_fwd"),
              source=src + "flash_attn_fwd.cu",
              replaces="regtr_tpu/ops/pallas/attention.py:49",
              launches=infer_launches["flash_attn_fwd"], forwards=forwards,
@@ -2418,6 +2808,7 @@ def main():
              forwards=forwards, id_dtype="int32", **transpose),
         dict(name="row_gather", row="K5a", route="cuda",
              **trainer_launches("row_gather"),
+             **modelnet_launches("row_gather"),
              source=src + "gather.cu",
              replaces="tools/exp_pallas_gather.py:44",
              also_replaces=["tools/exp_pallas_gather.py:77",

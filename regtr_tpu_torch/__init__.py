@@ -1,13 +1,14 @@
 """regtr_tpu_torch: the PyTorch + CUDA port of regtr_tpu (the inference
 forward; the trainer with its checkpoints, its data and `python -m
-regtr_tpu_torch.train`; the 3DMatch / 3DLoMatch test protocol and `python
--m regtr_tpu_torch.test`).
+regtr_tpu_torch.train`; the 3DMatch / 3DLoMatch and ModelNet / ModelLoNet
+test protocols and `python -m regtr_tpu_torch.test`; the command lines
+`evaluate_3dmatch`, `calibrate`, `demo` and `compute_overlap`).
 
 Imports torch, numpy and scipy, never jax, flax, optax, orbax or yaml, and
 nothing of regtr_tpu: the host-side code it needs (kernel points, se3_np,
 the datasets and their augmentation, the loader, collate, overlap labels,
-the Predator scorer) is its own copy.  h5py, TensorBoard and the CUDA
-toolchain are imported only where they are used.
+the scorers, the PLY and xlsx files) is its own copy.  h5py, matplotlib,
+TensorBoard and the CUDA toolchain are imported only where they are used.
 
 Public convenience surface:
     register(src_xyz, tgt_xyz, params, cfg, device="cuda") -> dict with pose

@@ -7,6 +7,8 @@ scalars, flow lists (which may span lines), and `#` comments -- resolves
 scalars the way PyYAML's `safe_load` does, and flattens the sections into
 one plain dict over `TPU_DEFAULTS`, as `regtr_tpu.config.load_config`
 does.  Anything outside that subset raises instead of being misread.
+`dump_yaml_sections` writes the same subset back, so that PyYAML and this
+loader read the file to the dict it was given.
 """
 from __future__ import annotations
 
@@ -149,6 +151,48 @@ def parse_yaml_sections(text: str, name: str = "<yaml>") -> dict:
     if pending is not None:
         raise ValueError(f"{name}: unterminated flow list for {pending[0]}")
     return out
+
+
+def _emit_scalar(v, where: str) -> str:
+    """v as a YAML scalar that PyYAML's safe_load and `_scalar` both read
+    back to v."""
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return repr(v)
+    if isinstance(v, float):
+        if v != v:
+            return ".nan"
+        if v in (float("inf"), float("-inf")):
+            return "-.inf" if v < 0 else ".inf"
+        text = repr(v)
+        # YAML 1.1 reads a float only with a dot: 1e-05 -> 1.0e-05
+        if "." not in text:
+            text = text.replace("e", ".0e")
+        return text
+    if isinstance(v, str) and "\n" not in v:
+        return "'" + v.replace("'", "''") + "'"
+    raise ValueError(f"{where}: cannot write {v!r} in the two-level YAML "
+                     "subset")
+
+
+def dump_yaml_sections(raw: dict) -> str:
+    """Write {section: {key: value}} (scalars and flat lists of scalars) as
+    YAML text in the subset `parse_yaml_sections` reads."""
+    lines = []
+    for section, entries in raw.items():
+        if not isinstance(entries, dict) or not entries:
+            raise ValueError(f"section {section!r}: the two-level YAML "
+                             "subset needs a non-empty mapping")
+        lines.append(f"{section}:")
+        for key, v in entries.items():
+            where = f"{section}.{key}"
+            text = ("[" + ", ".join(_emit_scalar(x, where) for x in v) + "]"
+                    if isinstance(v, (list, tuple)) else _emit_scalar(v, where))
+            lines.append(f"  {key}: {text}")
+    return "\n".join(lines) + "\n"
 
 
 def load_config(path) -> dict:

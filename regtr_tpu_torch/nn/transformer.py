@@ -4,8 +4,14 @@ regtr_tpu/nn/transformer.py, inference forward).
 Self-attention runs over the whole interleaved batch of 2B clouds;
 cross-attention is the same attention with keys and values from the partner
 cloud, i.e. the batch with adjacent slots swapped (core/pairs.py).
+
+`record_attention(model)` is the attention-map hook (the JAX modules'
+sow("intermediates", "attn")): inside it, every MultiHeadAttention also
+recomputes its probabilities explicitly and records them.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn as nn
@@ -27,12 +33,16 @@ class MultiHeadAttention(nn.Module):
     Only the q/k/v operands are cast to `compute_dtype`; every projection,
     out_proj included, runs in fp32 (on the bf16-rounded attention output),
     as flax promotes a bf16 input to its fp32 parameters.
+
+    While `record_attention` holds it, `record_to` is (maps, name) and each
+    call also stores maps[name], its probabilities (see there).
     """
 
     def __init__(self, d_model: int, nhead: int, compute_dtype=None):
         super().__init__()
         self.nhead = nhead
         self.compute_dtype = compute_dtype
+        self.record_to = None
         self.q_proj = nn.Linear(d_model, d_model)
         self.k_proj = nn.Linear(d_model, d_model)
         self.v_proj = nn.Linear(d_model, d_model)
@@ -45,18 +55,53 @@ class MultiHeadAttention(nn.Module):
         d_head = d_model // h
         op_dtype = self.compute_dtype or q.dtype
 
-        def fold(x, proj):
-            y = proj(x).reshape(b, -1, h, d_head).transpose(1, 2)
-            return y.reshape(b * h, -1, d_head).to(op_dtype).contiguous()
+        qh, kh, vh = (proj(x).reshape(b, -1, h, d_head) for x, proj in (
+            (q, self.q_proj), (k, self.k_proj), (v, self.v_proj)))
 
+        def fold(y):
+            y = y.transpose(1, 2).reshape(b * h, -1, d_head)
+            return y.to(op_dtype).contiguous()
+
+        scale = 1.0 / float(d_head) ** 0.5
         bias = torch.where(key_mask, 0.0, NEG_INF).to(torch.float32)
         bias = bias[:, None, :].expand(b, h, nk).reshape(b * h, nk)
-        o = flash_masked_attention(fold(q, self.q_proj), fold(k, self.k_proj),
-                                   fold(v, self.v_proj), bias.contiguous(),
-                                   1.0 / float(d_head) ** 0.5)
+        o = flash_masked_attention(fold(qh), fold(kh), fold(vh),
+                                   bias.contiguous(), scale)
+        if self.record_to is not None:
+            maps, name = self.record_to
+            maps[name] = attention_probabilities(qh, kh, key_mask, scale)
         out = o.reshape(b, h, nq, d_head).transpose(1, 2).reshape(b, nq,
                                                                   d_model)
         return self.out_proj(out.float())
+
+
+def attention_probabilities(qh, kh, key_mask, scale):
+    """softmax(q.k^T * scale) over the valid keys, in fp32 from the fp32
+    projections: (B, N, H, d) x2, (B, Nk) -> (B, H, N, Nk)."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", qh, kh) * scale
+    logits = torch.where(key_mask[:, None, None, :], logits, NEG_INF)
+    return torch.softmax(logits, dim=-1)
+
+
+@contextlib.contextmanager
+def record_attention(model: nn.Module):
+    """Inside the context, each MultiHeadAttention of `model` records the
+    attention probabilities of its latest call (B clouds, heads, N, Nk, at
+    the padded capacity) in the yielded dict, under its module path with
+    "/" for "." (e.g. "transformer_encoder/layer_0/self_attn", as the JAX
+    demo names its sown maps).  The attention itself still runs through
+    `flash_masked_attention`, so the outputs do not change; the maps are
+    one explicit softmax each, paid only here."""
+    maps = {}
+    mods = [(name.replace(".", "/"), m) for name, m in model.named_modules()
+            if isinstance(m, MultiHeadAttention)]
+    for name, m in mods:
+        m.record_to = (maps, name)
+    try:
+        yield maps
+    finally:
+        for _, m in mods:
+            m.record_to = None
 
 
 class CrossEncoderLayer(nn.Module):

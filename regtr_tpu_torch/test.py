@@ -1,4 +1,5 @@
-"""The port's evaluation command line: the 3DMatch / 3DLoMatch test protocol.
+"""The port's evaluation command line: the 3DMatch / 3DLoMatch and the
+ModelNet / ModelLoNet test protocols.
 
     python -m regtr_tpu_torch.test (--resume RUN_OR_CKPT_DIR | --params
         params.npz) --benchmark 3DMatch [--config conf.yaml] \
@@ -10,7 +11,10 @@ regtr_tpu_torch.train`, given its run directory or its ckpt/; --params
 loads a flat .npz.  The config is resolved next to either when not given,
 the model is built at the config's largest bucket, and the protocol's
 est.log files, benchmark_report.txt and log.txt go to a fresh run
-directory under --logdir.  --device replaces --platform: "cuda" (the
+directory under --logdir.  3DMatch and 3DLoMatch need a `3dmatch` config;
+ModelNet and ModelLoNet a `modelnet` or `synthetic` one, whose crop they
+set (`partial` [0.7, 0.7] and [0.5, 0.5]), and they write
+pred_transforms.npy.  --device replaces --platform: "cuda" (the
 default) raises where there is no CUDA device; the CPU runs only when
 asked for.
 """
@@ -68,13 +72,16 @@ def main(argv=None):
         opt.config = str(candidate)
     cfg = load_config(opt.config)
     cfg["benchmark"] = opt.benchmark
-    if opt.benchmark not in ("3DMatch", "3DLoMatch"):
-        raise NotImplementedError(
-            f"--benchmark {opt.benchmark}: the ModelNet protocol is not "
-            "ported yet (ROADMAP.md Queue A, item 4)")
-    if cfg["dataset"] != "3dmatch":
-        sys.exit(f"--benchmark {opt.benchmark} needs a 3dmatch config, got "
-                 f"dataset {cfg['dataset']!r}")
+    if opt.benchmark in ("3DMatch", "3DLoMatch"):
+        if cfg["dataset"] != "3dmatch":
+            sys.exit(f"--benchmark {opt.benchmark} needs a 3dmatch config, "
+                     f"got dataset {cfg['dataset']!r}")
+    else:
+        if cfg["dataset"] not in ("modelnet", "synthetic"):
+            sys.exit(f"--benchmark {opt.benchmark} needs a modelnet or "
+                     f"synthetic config, got dataset {cfg['dataset']!r}")
+        cfg["partial"] = ([0.5, 0.5] if opt.benchmark == "ModelLoNet"
+                          else [0.7, 0.7])
 
     logger, logdir = prepare_logger(opt.logdir, dev=opt.dev)
     test_loader = get_dataloader(cfg, "test", num_workers=opt.num_workers)

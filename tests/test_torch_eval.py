@@ -383,12 +383,17 @@ def test_cli_resume_restores_the_best_checkpoint(protocol_runs, tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
+    """No parameters; a benchmark on a config of another dataset (the
+    ModelNet protocol is ported: tests/test_torch_modelnet_eval.py); the
+    card where there is none."""
     with pytest.raises(SystemExit, match="one of --resume / --params"):
         port_cli.main([])
-    with pytest.raises(NotImplementedError, match="ModelNet"):
-        port_cli.main(["--params", str(tmp_path / "p.npz"), "--config",
-                       str(ROOT / "conf" / "modelnet.yaml"), "--benchmark",
-                       "ModelNet", "--device", "cpu"])
+    for bench, conf, want in (("ModelNet", "3dmatch", "modelnet or synthetic"),
+                              ("3DMatch", "modelnet", "3dmatch config")):
+        with pytest.raises(SystemExit, match=want):
+            port_cli.main(["--params", str(tmp_path / "p.npz"), "--config",
+                           str(ROOT / "conf" / f"{conf}.yaml"),
+                           "--benchmark", bench, "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             port_cli.main(["--params", str(tmp_path / "p.npz")])

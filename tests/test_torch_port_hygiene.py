@@ -37,7 +37,12 @@ def test_port_imports_no_jax_flax_or_yaml():
         "regtr_tpu_torch.test, regtr_tpu_torch.train.trainer, "
         "regtr_tpu_torch.train.__main__, regtr_tpu_torch.data.transforms, "
         "regtr_tpu_torch.data.modelnet, regtr_tpu_torch.data.synthetic, "
-        "regtr_tpu_torch.data.modelnet_transforms\n"
+        "regtr_tpu_torch.data.modelnet_transforms, "
+        "regtr_tpu_torch.benchmark.modelnet, regtr_tpu_torch.benchmark.dgr, "
+        "regtr_tpu_torch.utils.xlsx, regtr_tpu_torch.utils.ply, "
+        "regtr_tpu_torch.utils.viz, regtr_tpu_torch.data.calibrate, "
+        "regtr_tpu_torch.evaluate_3dmatch, regtr_tpu_torch.calibrate, "
+        "regtr_tpu_torch.demo, regtr_tpu_torch.compute_overlap\n"
         "from regtr_tpu_torch.config import threedmatch_config\n"
         "from regtr_tpu_torch.models import create_model\n"
         "create_model(threedmatch_config(first_feats_dim=16, d_embed=32, "
@@ -58,8 +63,9 @@ def test_port_imports_no_jax_flax_or_yaml():
         "model = create_model(cfg, 512, 'cpu')\n"
         "batch, _ = collate_pairs(chip_smoke.synthetic_samples(1, 500, 0, "
         "cfg), [512])\n"
+        "batch_t = {k: torch.from_numpy(v) for k, v in batch.items()}\n"
         "m = make_train_step(model, Optimizer(model.parameters(), cfg), "
-        "cfg)({k: torch.from_numpy(v) for k, v in batch.items()})\n"
+        "cfg)(batch_t)\n"
         "assert m['update_skipped'] == 0.0, m\n"
         "from regtr_tpu_torch.config import load_config\n"
         "from regtr_tpu_torch.data import get_dataset\n"
@@ -70,7 +76,11 @@ def test_port_imports_no_jax_flax_or_yaml():
         # source check below keeps the port's own imports of it local)
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'yaml', 'optax', 'orbax', 'regtr_tpu', "
-        "'tools', 'h5py')]\n"
+        "'tools', 'h5py', 'matplotlib')]\n"
+        "from regtr_tpu_torch.nn.transformer import record_attention\n"
+        "with record_attention(model) as maps:\n"
+        "    model(batch_t['points'], batch_t['mask'])\n"
+        "assert len(maps) == 2, sorted(maps)\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -89,7 +99,9 @@ def test_port_sources_do_not_name_jax():
     # The port keeps its own copies of what it needs from the JAX package,
     # even of modules there that import no JAX.
     sources = list((ROOT / "regtr_tpu_torch").rglob("*.py"))
-    for module in ("ops/gather.py", "test.py", "evaluation.py"):
+    for module in ("ops/gather.py", "test.py", "evaluation.py", "demo.py",
+                   "calibrate.py", "evaluate_3dmatch.py",
+                   "compute_overlap.py", "utils/viz.py", "data/calibrate.py"):
         assert ROOT / "regtr_tpu_torch" / module in sources
     for path in sources:
         for line, root in _imported_roots(path):
@@ -97,7 +109,7 @@ def test_port_sources_do_not_name_jax():
                                 "tools"), (path, line)
             # absent where the port runs: imported only where they are used
             assert line[:1].isspace() or root not in (
-                "orbax", "tqdm", "h5py"), (path, line)
+                "orbax", "tqdm", "h5py", "matplotlib"), (path, line)
     # chip_smoke.py, and kernel_variants.py which it imports, run
     # where only torch and numpy are installed: they use the port alone, not
     # the JAX package nor its tools.
