@@ -93,7 +93,22 @@ non-zero without one, and without the checkout beside it).  Phases:
    samples, the YAML it writes read back) and on the card and the CPU (1
    sample, equal results); `python -m regtr_tpu_torch.evaluate_3dmatch`
    on phase 7's est.log trees (Predator recall as run_test's, DGR 1.0 on
-   the GT logs, individual_errors.xlsx read back).
+   the GT logs, individual_errors.xlsx read back);
+11. the options the shipped configs leave off, at the full width of
+   conf/3dmatch.yaml (a derived YAML under .build/options: the last three
+   blocks deformable and modulated, the attention decoder head with its
+   top-64 mask, the learned positional embedding, the sampled circle
+   loss, 2 micro-steps per update): (a) the bf16 forward on 4 pairs at
+   bucket 20480, finite, each K1 and K5a launch of one pair held to its
+   plain version; (b) the trainer over 4 micro-steps (fp32, 2 pairs,
+   bucket 24576): the parameters move at micro-steps 2 and 4 only, the
+   losses finite, each launch of the last micro-step held to its plain
+   version; (c) compute_loss and its backward with dropout 0.1 (dense
+   attention, no K1), finite, bitwise repeatable with a seed and not
+   with another; (d) one pair's pyramid by the 'scan' and 'grid'
+   searches: each K5b launch bitwise torch.gather, the tables the brute
+   search's by tests/test_torch_pyramid.py's rule, K5b timed at the
+   scan's merge shape.
 
 It imports torch, numpy, scipy and regtr_tpu_torch, nothing of JAX.
 
@@ -755,7 +770,7 @@ def phase_small_input():
         coarse = levels[-1]
         feats_un, pe = model.encode(levels)
         cond = model.condition(feats_un, pe, coarse.mask)
-        return model.head_and_pose(cond, coarse.points, coarse.mask)
+        return model.head_and_pose(cond, coarse.points, coarse.mask, pe)
 
     # Downstream of the pyramid, both devices run on the CPU's tables.
     lv_moved = [dataclasses.replace(lv, **{
@@ -1089,7 +1104,8 @@ def phase_main_path():
             torch.cuda.synchronize()
             stages["transformer"].append(time.perf_counter() - t)
             t = time.perf_counter()
-            model.head_and_pose(cond, levels[-1].points, levels[-1].mask)
+            model.head_and_pose(cond, levels[-1].points, levels[-1].mask,
+                                pe)
             torch.cuda.synchronize()
             stages["head_pose"].append(time.perf_counter() - t)
     log("stages (median ms, host clock around synchronized stages): "
@@ -1990,17 +2006,22 @@ def recorded_train_steps(record, latest):
 
 
 @contextlib.contextmanager
-def held_to_plain(found):
-    """Every kernel launch of the training path, held to its plain version
-    on the same inputs as it happens: the attention forward (out and lse)
-    and backward within TOL and TOL_BWD of the operands' dtype (as phase 3
-    holds them), the row gather and the segment transpose bitwise, the
-    segment sum within TOL_SEGSUM of its largest |sum|.  found[(kernel,
-    shape, dtype)] = (launches, largest |difference|, all within)."""
+def held_to_plain(found, keep=None):
+    """Every kernel launch of the training path and of the neighbor
+    searches, held to its plain version on the same inputs as it happens:
+    the attention forward (out and lse) and backward within TOL and TOL_BWD
+    of the operands' dtype (as phase 3 holds them), the row gathers (the
+    kernels' and the grid search's), the element gather (the scan and grid
+    searches' merges) and the segment transpose bitwise, the segment sum
+    within TOL_SEGSUM of its largest |sum|.  found[(kernel, shape, dtype)]
+    = (launches, largest |difference|, all within).  keep, if given, gets
+    the element gather's inputs of the largest src under 'args' (for
+    timing)."""
     import torch
 
-    from regtr_tpu_torch.ops import attention, kpconv
-    from regtr_tpu_torch.ops.gather import row_gather_reference
+    from regtr_tpu_torch.ops import attention, kpconv, neighbors
+    from regtr_tpu_torch.ops.gather import (element_gather_reference,
+                                            row_gather_reference)
 
     def note(name, shape, dtype, err, ok):
         key = (name, tuple(shape), str(dtype)[6:])
@@ -2012,7 +2033,8 @@ def held_to_plain(found):
 
     real = dict(fwd=attention._kernel_fwd, bwd=attention._bwd,
                 gather=kpconv.row_gather, transpose=kpconv.segment_transpose,
-                sum=kpconv.segment_sum)
+                sum=kpconv.segment_sum, search_gather=neighbors.row_gather,
+                elements=neighbors.element_gather)
 
     def fwd(q, k, v, bias, scale, want_lse):
         out, lse = real["fwd"](q, k, v, bias, scale, want_lse)
@@ -2040,11 +2062,24 @@ def held_to_plain(found):
                      <= tol for g, r in pairs))
         return got
 
-    def gather(table, idx):
-        out = real["gather"](table, idx)
-        same = torch.equal(out, row_gather_reference(table, idx))
-        note("row_gather", (idx.shape[0], table.shape[1]), table.dtype,
-             0.0 if same else float("inf"), same)
+    def held_rows(which):
+        def gather(table, idx):
+            out = real[which](table, idx)
+            ref = row_gather_reference(table, idx)
+            same = torch.equal(out, ref)
+            note("row_gather", (idx.shape[0], table.shape[1]), table.dtype,
+                 0.0 if same else max_err(out, ref), same)
+            return out
+        return gather
+
+    def elements(src, idx, axis):
+        out = real["elements"](src, idx, axis)
+        ref = element_gather_reference(src, idx, axis)
+        same = torch.equal(out, ref)
+        note("element_gather", idx.shape, src.dtype,
+             0.0 if same else max_err(out, ref), same)
+        if keep is not None and src.numel() > keep.get("numel", 0):
+            keep.update(numel=src.numel(), args=(src, idx, axis))
         return out
 
     def transpose(ids, num, stride):
@@ -2069,13 +2104,17 @@ def held_to_plain(found):
     # which the wrappers take meanwhile: fold those counts back on exit
     transpose.launches = segsum.launches = 0
     attention._kernel_fwd, attention._bwd = fwd, bwd
-    kpconv.row_gather, kpconv.segment_transpose = gather, transpose
-    kpconv.segment_sum = segsum
+    kpconv.row_gather = held_rows("gather")
+    kpconv.segment_transpose, kpconv.segment_sum = transpose, segsum
+    neighbors.row_gather = held_rows("search_gather")
+    neighbors.element_gather = elements
     try:
         yield
     finally:
         attention._kernel_fwd, attention._bwd = real["fwd"], real["bwd"]
         kpconv.row_gather = real["gather"]
+        neighbors.row_gather = real["search_gather"]
+        neighbors.element_gather = real["elements"]
         kpconv.segment_transpose = real["transpose"]
         kpconv.segment_sum = real["sum"]
         real["transpose"].launches += transpose.launches
@@ -2687,6 +2726,454 @@ def phase_tools(protocol):
               f"individual_errors.xlsx read back, {len(rows) - 1} pairs")
 
 
+# Phase 11's configuration: conf/3dmatch.yaml at every shipped width, with
+# the options the shipped configs leave off switched on: deformable
+# (modulated) blocks at the two deepest levels (the last three blocks, as
+# KPConv's deformable KP-FCNN puts them), the attention decoder head with
+# its top-64 mask, the learned positional embedding, the sampled circle
+# loss and gradient accumulation over 2 micro-steps.
+OPTIONS_CONFIG = ROOT / ".build" / "options" / "3dmatch_options.yaml"
+OPTIONS = {"modulated": True, "direct_regress_coor": False,
+           "corr_decoder_num_neighbors": 64, "pos_emb_type": "learned",
+           "feature_loss_type": "circle_sampled", "circle_n_sample": 256,
+           "grad_accum_steps": 2}
+OPTIONS_MICRO_STEPS = 4
+OPTIONS_DROPOUT = 0.1
+# An fp32 distance expansion errs by a few roundings of its largest terms:
+# |d - exact| <= FP32_TIE * (|q|^2 + |s|^2) (tests/test_torch_neighbors_
+# scan.py measured 2.1 roundings of 2^-24 between two backends).
+FP32_TIE = 4 * 2.0 ** -24
+# kernels of the training path, in phase 11's checks
+STEP_KERNELS = ("flash_attn_fwd", "flash_attn_bwd_dkv", "flash_attn_bwd_dq",
+                "segsum", "segment_transpose", "row_gather")
+
+
+def options_config():
+    """Write OPTIONS_CONFIG: conf/3dmatch.yaml's text and a last section of
+    OPTIONS (later sections override earlier keys) -> its config."""
+    from regtr_tpu_torch.config import dump_yaml_sections, load_config
+
+    src = ROOT / "conf" / "3dmatch.yaml"
+    arch = list(load_config(src)["architecture"])
+    check(arch[-3:] == ["resnetb_strided", "resnetb", "resnetb"],
+          f"conf/3dmatch.yaml's last three blocks: {arch[-3:]}")
+    arch[-3:] = ["resnetb_deformable_strided", "resnetb_deformable",
+                 "resnetb_deformable"]
+    OPTIONS_CONFIG.parent.mkdir(parents=True, exist_ok=True)
+    OPTIONS_CONFIG.write_text(src.read_text() + "\n" + dump_yaml_sections(
+        {"options": dict(OPTIONS, architecture=arch)}))
+    return load_config(OPTIONS_CONFIG)
+
+
+class FixedBatches:
+    """The trainer's loader interface over fixed collated batches."""
+
+    def __init__(self, batches):
+        self.batches = batches
+
+    def __len__(self):
+        return len(self.batches)
+
+    def set_epoch(self, epoch):
+        pass
+
+    def __iter__(self):
+        return ((b, None) for b in self.batches)
+
+
+def tables_match(got, ref, queries, supports, radius):
+    """tests/test_torch_pyramid.py's rule for two neighbor tables (numpy,
+    (B, Nq, K)), on exact (float64) distances with each window widened by
+    what the brute search's fp32 expansion |q|^2 - 2 q.s + |s|^2 may err:
+    rows equal as sets, except points within one bf16 step of the K-th
+    slot's distance in rows full in both, and points within two bf16 steps
+    of the acceptance threshold r^2 * 1.004.  At room coordinates (|q|^2
+    ~ 18 m^2) the expansion errs by up to ~0.3 bf16 steps of a distance
+    near r^2, so two points 1.25 steps apart can round to one bf16 value
+    (the rule on bf16 roundings of exact distances would call them 2 steps
+    apart).  A row's slack is sized from the points that row's tables name
+    (the differing points and the K-th slots), not from the whole cloud.
+    -> (rows that differ, the first row that breaks the rule or None, the
+    widest slack of a differing row in bf16 steps at the threshold)."""
+    ns, k = supports.shape[-2], got.shape[-1]
+    thr = float(np.float32(radius * radius) * np.float32(1.004))
+    s_sq = (supports.astype(np.float64) ** 2).sum(-1)
+
+    def ulp(x):
+        return 2.0 ** (np.floor(np.log2(np.maximum(x, 1e-30))) - 7)
+
+    g_sorted = np.sort(np.where(got < ns, got, ns), -1)
+    r_sorted = np.sort(np.where(ref < ns, ref, ns), -1)
+    rows = np.nonzero((g_sorted != r_sorted).any(-1))
+    widest = 0.0
+    for b, i in zip(*rows):
+        g = set(got[b, i][got[b, i] < ns].tolist())
+        r = set(ref[b, i][ref[b, i] < ns].tolist())
+        q = queries[b, i].astype(np.float64)
+        # two of the row's points' distances, each within FP32_TIE of its
+        # expansion
+        slack = 2 * FP32_TIE * ((q * q).sum() + s_sq[b, sorted(g | r)].max())
+        widest = max(widest, slack / ulp(thr))
+
+        def d2(idx):
+            return ((supports[b, sorted(idx)].astype(np.float64) - q)
+                    ** 2).sum(-1)
+
+        diff = d2(g ^ r)
+        at_thr = np.abs(diff - thr) <= 2 * ulp(thr) + slack
+        if len(g) == len(r) == k:
+            kth = max(d2(g).max(), d2(r).max())
+            tie = ((kth - diff <= ulp(kth) + slack)
+                   & (diff >= d2(g & r).max(initial=0.0) - ulp(kth)
+                      - slack))
+            good = np.all(tie | at_thr)
+        else:
+            good = np.all(at_thr)
+        if not good:
+            return len(rows[0]), (
+                f"cloud {b} row {i}: {len(g)} vs {len(r)} points, only in "
+                f"the first {sorted(g - r)} at {d2(g - r).tolist()}, only "
+                f"in the second {sorted(r - g)} at {d2(r - g).tolist()}, "
+                f"common up to {d2(g & r).max(initial=0.0)}, threshold "
+                f"{thr}, slack {slack:.3e}"), widest
+    return len(rows[0]), None, widest
+
+
+def options_searches(cfg, pts, mask, smi):
+    """Phase 11(d): one pair's pyramid (pts (2, N0, 3), mask (2, N0)) by
+    the brute, scan and grid searches, every kernel launch of theirs held
+    to its plain version on the same inputs and the scan and grid tables to
+    the brute search's by tables_match; then K5b timed on the largest of
+    the searches' inputs.  -> the searches' times and launches, and K5b's
+    kernels-line numbers."""
+    import torch
+
+    from regtr_tpu_torch.ops.gather import (element_gather,
+                                            element_gather_reference)
+    from regtr_tpu_torch.ops.pyramid import build_pyramid, make_pyramid_spec
+
+    spec = make_pyramid_spec(cfg, pts.shape[1])
+    pyramids, search, held, keep = {}, {}, {}, {}
+    for method in ("brute", "scan", "grid"):
+        held[method] = {}
+        _zero_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with held_to_plain(held[method], keep):
+            pyramids[method] = build_pyramid(
+                pts, mask, spec, method=method,
+                chunk=int(cfg["neighbor_chunk"]),
+                cell_cap=int(cfg.get("cell_capacity", 32)))
+            torch.cuda.synchronize()
+        search[method] = dict(ms=(time.perf_counter() - t) * 1e3,
+                              launches=_launch_counts())
+    for method, found in held.items():
+        for (name, shape, dtype), (calls, err, ok) in sorted(found.items()):
+            log(f"  {method}: {name} {list(shape)} {dtype}: {calls} "
+                f"launches, largest |kernel - plain| {err:.3e}")
+    used = {m: {k: n for k, n in v["launches"].items() if n}
+            for m, v in search.items()}
+    check(not used["brute"]
+          and set(used["scan"]) == {"element_gather"}
+          and set(used["grid"]) == {"element_gather", "row_gather"}
+          and all(ok for found in held.values() for *_, ok in found.values())
+          and all(sum(c for (nm, *_), (c, *_) in held[m].items() if nm == k)
+                  == n for m in used for k, n in used[m].items()),
+          f"searches' launches {used}: scan K5b, grid K5b and K5a, each "
+          "launch bitwise its plain version (torch.gather, index_select) on "
+          "the same inputs")
+    differ, slack = {}, {}
+    for method in ("scan", "grid"):
+        for li, (lv, ref) in enumerate(zip(pyramids[method],
+                                           pyramids["brute"])):
+            r = spec.radii[li]
+            for name, qi, si, radius in (("neighbors", li, li, r),
+                                         ("pools", li + 1, li, r),
+                                         ("upsamples", li, li + 1, 2 * r)):
+                if getattr(lv, name) is None:
+                    continue
+                n, broken, widest = tables_match(
+                    getattr(lv, name).cpu().numpy(),
+                    getattr(ref, name).cpu().numpy(),
+                    pyramids["brute"][qi].points.cpu().numpy(),
+                    pyramids["brute"][si].points.cpu().numpy(), radius)
+                differ[f"{method} L{li} {name}"] = n
+                slack[f"{method} L{li} {name}"] = widest
+                check(broken is None, f"{method} level {li} {name}: the "
+                      f"brute search's table by tests/test_torch_pyramid."
+                      f"py's rule ({n} rows differ; {broken})")
+    log(f"searches of one pair's pyramid ({smi}): " + ", ".join(
+        f"{m} {v['ms']:.1f} ms" for m, v in search.items()) + " (host "
+        "clock, synchronized; the kernel checks in); rows differing from "
+        "brute's (the widest slack of such a row, in bf16 steps of the "
+        "threshold): " + ", ".join(f"{k} {n} ({slack[k]:.2f})"
+                                   for k, n in differ.items()))
+    # K5b at the scan's merge shape, on the search's own inputs
+    src, idx, axis = keep["args"]
+    out = element_gather_reference(src, idx, axis)
+
+    def kernel():
+        return element_gather(src, idx, axis)
+
+    def library():
+        return torch.gather(src, src.dim() - 2 + axis, idx)
+
+    # in turns (kernel, library, library, kernel), single launches and runs
+    # of 10 (b2b: nearer the device's time, the wrappers' host time hidden)
+    turns = [cuda_ms(kernel), cuda_ms(library), cuda_ms(library),
+             cuda_ms(kernel)]
+    b2b = [cuda_ms(kernel, reps=10), cuda_ms(library, reps=10),
+           cuda_ms(library, reps=10), cuda_ms(kernel, reps=10)]
+    ms, lib_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    b2b_ms, b2b_lib_ms = (b2b[0] + b2b[3]) / 2, (b2b[1] + b2b[2]) / 2
+    # the data this gather needs: each index and output once, and the
+    # gathered elements of src (not its whole rows)
+    bnd = bound(0, idx.numel() * 8 + 2 * out.numel() * 4, "float32")
+    log(f"  K5b at the search's shape, src {list(src.shape)} int32, idx "
+        f"{list(idx.shape)}: kernel {ms:.4f} ms, b2b {b2b_ms:.4f} (bound "
+        f"{bnd[0]:.4f}, {bnd[1]}), torch.gather {lib_ms:.4f} ms, b2b "
+        f"{b2b_lib_ms:.4f} (turns {' / '.join(f'{x:.4f}' for x in turns)}"
+        f", b2b {' / '.join(f'{x:.4f}' for x in b2b)}; medians of 30, "
+        f"CUDA events)")
+    # the largest |kernel - plain| of the searches' K5b launches (held above)
+    k5b_err = max(err for found in held.values()
+                  for (nm, *_), (_, err, _) in found.items()
+                  if nm == "element_gather")
+    return dict(
+        ms={m: v["ms"] for m, v in search.items()},
+        launches={k: search["scan"]["launches"][k]
+                  + search["grid"]["launches"][k]
+                  for k in search["scan"]["launches"]},
+        launches_by_method=used,
+        k5b=dict(shape=list(src.shape), idx_shape=list(idx.shape),
+                 axis=axis, dtype="int32", max_abs_err=k5b_err, ms=ms,
+                 plain_ms=lib_ms, bound_ms=bnd[0], bound_by=bnd[1],
+                 library_ms=lib_ms, back_to_back_ms=b2b_ms,
+                 library_back_to_back_ms=b2b_lib_ms))
+
+
+def phase_options():
+    """The model and training options at the full width of
+    conf/3dmatch.yaml (OPTIONS_CONFIG): (a) the bf16 forward on 4 pairs,
+    each K1 and K5a launch of one pair held to its plain version; (b) the
+    trainer over OPTIONS_MICRO_STEPS micro-steps (fp32, 2 pairs, bucket
+    24576; 2 updates), the last micro-step's kernel launches held to their
+    plain versions; (c) compute_loss and its backward with dropout (dense
+    attention), seeded; (d) one pair's pyramid by the 'scan' and 'grid'
+    searches, their K5b and (grid) K5a launches held bitwise to their plain
+    versions and their tables to the brute search's.  Returns the launches
+    and the numbers."""
+    import tempfile
+
+    import torch
+
+    from regtr_tpu_torch.data.collate import collate_pairs
+    from regtr_tpu_torch.models import create_model
+    from regtr_tpu_torch.train import trainer
+
+    t_phase = time.perf_counter()
+    cfg = options_config()
+    log(f"== phase 11: the options at the width of conf/3dmatch.yaml "
+        f"({OPTIONS_CONFIG.relative_to(ROOT)}: {OPTIONS}, the last three "
+        f"blocks {cfg['architecture'][-3:]})")
+    smi = card_line()
+    result = {}
+
+    # (a) inference: bf16, 4 pairs at bucket N0
+    cfg_a = dict(cfg, compute_dtype="bfloat16")
+    model = create_model(cfg_a, N0, DEVICE, seed=0)
+    pts_np, mask_np = synthetic_pairs(N_PAIRS, N_POINTS, seed=3)
+    pts = torch.from_numpy(pts_np).to(DEVICE)
+    mask = torch.from_numpy(mask_np).to(DEVICE)
+    with torch.inference_mode():
+        model(pts, mask)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(3):
+            _zero_launch_counts()
+            t = time.perf_counter()
+            out = model(pts, mask)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_layers = cfg["num_encoder_layers"]
+    nc = model.spec.capacities[-1]
+    for key, shape in (("corr", (n_layers, 2 * N_PAIRS, nc, 3)),
+                       ("overlap_logits", (n_layers, 2 * N_PAIRS, nc)),
+                       ("pose", (n_layers, N_PAIRS, 3, 4))):
+        check(tuple(out[key].shape) == shape
+              and bool(torch.isfinite(out[key].float()).all()),
+              f"options forward: {key} finite, shape {shape}")
+    fwd_ms = statistics.median(times) * 1e3
+    check(launches["flash_attn_fwd"] == 2 * n_layers
+          and launches["row_gather"] > 0
+          and launches["element_gather"] == launches["segsum"] == 0,
+          f"options forward ({N_PAIRS} pairs) launches {launches}")
+    found = {}
+    with torch.inference_mode(), held_to_plain(found):
+        _zero_launch_counts()
+        model(pts[:2], mask[:2])
+        torch.cuda.synchronize()
+    per_pair = _launch_counts()
+    for (name, shape, dtype), (calls, err, ok) in sorted(found.items()):
+        log(f"  {name} {list(shape)} {dtype}: {calls} launches, largest "
+            f"|kernel - plain| {err:.3e}")
+    check(all(ok for *_, ok in found.values())
+          and sum(c for (nm, *_), (c, *_) in found.items()
+                  if nm == "flash_attn_fwd") == 2 * n_layers
+          and sum(c for (nm, *_), (c, *_) in found.items()
+                  if nm == "row_gather") == per_pair["row_gather"] > 0,
+          f"one pair's forward: each of its {sum(per_pair.values())} "
+          f"launches {per_pair} within its tolerance of its plain version")
+    log(f"options forward ({smi}): {fwd_ms:.1f} ms per batch of {N_PAIRS} "
+        f"pairs ({N_PAIRS / fwd_ms * 1e3:.3f} pairs/s; median of 3, host "
+        f"clock), peak {peak / 2**30:.2f} GiB")
+    result["inference"] = dict(ms=fwd_ms, launches_per_pair=per_pair,
+                               peak_gib=peak / 2**30)
+    del model, out, pts, mask
+    torch.cuda.empty_cache()
+
+    # (b) the trainer: fp32, 2 pairs, micro-steps of grad_accum_steps 2
+    n_pairs = int(cfg["train_batch_size"])
+    batches = [collate_pairs(synthetic_samples(n_pairs, N_POINTS, seed, cfg),
+                             cfg["buckets"])[0] for seed in (4, 5)]
+    n0 = batches[0]["points"].shape[1]
+    model = create_model(cfg, n0, DEVICE, seed=0)
+    record, found = [], {}
+    real_make = trainer.make_train_step
+
+    def make(model_, optimizer, cfg_):
+        step = real_make(model_, optimizer, cfg_)
+        prev = [p.detach().clone() for p in optimizer.params]
+
+        def run(batch):
+            last = len(record) == OPTIONS_MICRO_STEPS - 1
+            _zero_launch_counts()
+            with held_to_plain(found) if last else contextlib.nullcontext():
+                metrics = step(batch)
+                torch.cuda.synchronize()
+            moved = any(not torch.equal(a, b)
+                        for a, b in zip(prev, optimizer.params))
+            prev[:] = [p.detach().clone() for p in optimizer.params]
+            record.append(dict(total=float(metrics["total"]),
+                               skipped=metrics["update_skipped"],
+                               launches=_launch_counts(), moved=moved,
+                               position=optimizer.position))
+            return metrics
+
+        return run
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_options_"))
+    trainer.make_train_step = make
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        run = trainer.Trainer(cfg, work, summary_every=4, validate_every=0,
+                              nb_sanity_val_steps=0)
+        run.fit(model, FixedBatches(batches), None,
+                niter=OPTIONS_MICRO_STEPS)
+    finally:
+        trainer.make_train_step = real_make
+        close_port_logger()
+        shutil.rmtree(work, ignore_errors=True)
+    for i, r in enumerate(record):
+        log(f"  micro-step {i + 1}: loss {r['total']:.5f}, parameters "
+            f"{'moved' if r['moved'] else 'unchanged'}, (updates, "
+            f"micro-steps) {r['position']}, launches {r['launches']}")
+    step_launches = record[0]["launches"]
+    check(len(record) == OPTIONS_MICRO_STEPS
+          and all(np.isfinite(r["total"]) and r["skipped"] == 0.0
+                  for r in record),
+          f"{OPTIONS_MICRO_STEPS} micro-steps, every loss finite, none "
+          "skipped")
+    check([r["moved"] for r in record] == [False, True] * (
+        OPTIONS_MICRO_STEPS // 2)
+          and record[-1]["position"] == (OPTIONS_MICRO_STEPS // 2, 0),
+          "grad_accum_steps 2: the parameters unchanged after micro-steps "
+          "1 and 3, changed after 2 and 4 (2 updates)")
+    check(all(r["launches"] == step_launches for r in record)
+          and all(step_launches[k] > 0 for k in STEP_KERNELS)
+          and step_launches["element_gather"] == 0,
+          f"every micro-step launches {step_launches}")
+    for (name, shape, dtype), (calls, err, ok) in sorted(found.items()):
+        log(f"  {name} {list(shape)} {dtype}: {calls} launches, largest "
+            f"|kernel - plain| {err:.3e}")
+    check(all(ok for *_, ok in found.values())
+          and all(sum(c for (nm, *_), (c, *_) in found.items() if nm == k)
+                  == step_launches[k] for k in STEP_KERNELS),
+          f"the last micro-step: each of its launches of "
+          f"{len(STEP_KERNELS)} kernels within its tolerance of its plain "
+          "version on the same inputs")
+    steps_ms = [t * 1e3 for t in run.timing["step_s"]]
+    peak = torch.cuda.max_memory_allocated()
+    log(f"options micro-steps ({smi}): " + " ".join(
+        f"{t:.1f}" for t in steps_ms) + " ms (host clock; the last held "
+        f"to the plain versions), peak {peak / 2**30:.2f} GiB")
+    result["training"] = dict(micro_step_ms=statistics.median(steps_ms[1:-1]),
+                              launches_per_micro_step=step_launches,
+                              bucket=n0, peak_gib=peak / 2**30)
+
+    # (c) dropout: compute_loss and its backward, seeded
+    model_d = create_model(dict(cfg, dropout=OPTIONS_DROPOUT), n0, DEVICE,
+                           seed=1)
+    model_d.load_state_dict(model.state_dict())
+    del model
+    batch = {k: torch.from_numpy(v).to(DEVICE)
+             for k, v in batches[0].items() if k in
+             ("points", "mask", "pose", "overlap0")}
+    params = list(model_d.parameters())
+    runs, times = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for seed in (0, 0, 1):
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        _zero_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses, _ = model_d.compute_loss(batch["points"], batch["mask"],
+                                         batch["pose"], batch["overlap0"],
+                                         generator=gen)
+        grads = torch.autograd.grad(losses["total"], params,
+                                    allow_unused=True)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        runs.append((losses["total"].detach(), grads, _launch_counts()))
+    (l0, g0, used), (l1, g1, _), (l2, g2, _) = runs
+    peak = torch.cuda.max_memory_allocated()
+    log(f"dropout {OPTIONS_DROPOUT}: losses {float(l0):.6f} / "
+        f"{float(l1):.6f} (seed 0), {float(l2):.6f} (seed 1); launches "
+        f"{used}; compute_loss + backward " + " ".join(
+            f"{t * 1e3:.1f}" for t in times) + f" ms, peak "
+        f"{peak / 2**30:.2f} GiB")
+    same = torch.equal(l0, l1) and all(
+        (a is None and b is None) or torch.equal(a, b)
+        for a, b in zip(g0, g1))
+    check(bool(torch.isfinite(l0)) and all(
+        g is None or bool(torch.isfinite(g).all()) for g in g0),
+        "dropout step: loss and gradients finite")
+    check(same, "dropout step bitwise repeatable with one seed")
+    check(not torch.equal(l0, l2), "another seed, another loss")
+    check(used["flash_attn_fwd"] == used["flash_attn_bwd_dkv"]
+          == used["flash_attn_bwd_dq"] == 0
+          and all(used[k] == step_launches[k]
+                  for k in ("row_gather", "segsum", "segment_transpose")),
+          f"dropout step launches {used}: attention dense (K1, K2, K3 "
+          "none by design), the gathers and their transposes as a "
+          "micro-step's")
+    result["dropout"] = dict(ms=statistics.median(times) * 1e3,
+                             launches=used, peak_gib=peak / 2**30)
+    del model_d, runs, g0, g1, g2, grads
+    torch.cuda.empty_cache()
+
+    # (d) the neighbor searches on one pair's pyramid at bucket N0
+    result["search"] = options_searches(
+        cfg, torch.from_numpy(pts_np[:2]).to(DEVICE),
+        torch.from_numpy(mask_np[:2]).to(DEVICE), smi)
+    torch.cuda.empty_cache()
+    log(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
+    return result
+
+
 def main():
     if not (ROOT / "regtr_tpu_torch").is_dir():
         raise SystemExit("FAILED: run chip_smoke.py from a checkout of the "
@@ -2707,18 +3194,31 @@ def main():
     train_n = make_pyramid_spec(cfg, train_n0).capacities[-1]
     # the protocol builds the model at the largest bucket
     protocol_n = make_pyramid_spec(cfg, max(cfg["buckets"])).capacities[-1]
-    phase_device()
-    phase_build()
-    attn = phase_attention(train_n, protocol_n, trainer_shape,
-                           modelnet_shape)
-    gather_rows, gather_elements = phase_gather(train_n0)
-    phase_small_input()
-    infer_launches, forwards = phase_main_path()
-    train_launches, segsum = phase_training()
-    protocol = phase_protocol()
-    trained = phase_trainer(trainer_shape)
-    modelnet = phase_modelnet(modelnet_shape)
-    phase_tools(protocol)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        """fn(*args), its wall time kept under `name`."""
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    timed("1", phase_device)
+    timed("2", phase_build)
+    attn = timed("3", phase_attention, train_n, protocol_n, trainer_shape,
+                 modelnet_shape)
+    gather_rows, gather_elements = timed("3b", phase_gather, train_n0)
+    timed("4", phase_small_input)
+    infer_launches, forwards = timed("5", phase_main_path)
+    train_launches, segsum = timed("6", phase_training)
+    protocol = timed("7", phase_protocol)
+    trained = timed("8", phase_trainer, trainer_shape)
+    modelnet = timed("9", phase_modelnet, modelnet_shape)
+    timed("10", phase_tools, protocol)
+    options = timed("11", phase_options)
+    log("seconds per phase (host clock): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items()) + f"; all "
+        f"{sum(seconds.values()):.1f}")
     k1 = attn[((64, 1872, 1872, 32), "bfloat16")]
     bwd = attn[((32, train_n, train_n, 32), "float32")]
     k1_other = [dict(what=what, shape=list(shape), dtype="float32",
@@ -2756,10 +3256,18 @@ def main():
 
     def trainer_launches(name):
         """Phase 8's launches of a kernel: over the phase, and per train
-        step."""
+        step; and phase 11's, per pair of its forward, per micro-step, per
+        dropout step and per pair's searches (scan and grid)."""
         return dict(trainer_launches=trained["launches"][name],
                     trainer_launches_per_step=trained["per_step"][name],
-                    trainer_steps=trained["steps"])
+                    trainer_steps=trained["steps"], options_launches=dict(
+                        forward_per_pair=options["inference"][
+                            "launches_per_pair"][name],
+                        micro_step=options["training"][
+                            "launches_per_micro_step"][name],
+                        dropout_step=options["dropout"]["launches"][name],
+                        searches_per_pair=options["search"]["launches"][
+                            name]))
 
     src = "regtr_tpu_torch/csrc/"
     log(json.dumps({"kernels": [
@@ -2828,8 +3336,15 @@ def main():
              also_replaces=["tools/exp_pallas_gather4.py:30",
                             "tools/exp_pallas_gather5.py:29",
                             "tools/exp_pallas_gather5.py:67"],
-             launches=infer_launches["element_gather"], on_path=False,
-             **gather_elements),
+             launches=options["search"]["launches"]["element_gather"],
+             launches_by_search={
+                 m: n.get("element_gather", 0) for m, n in
+                 options["search"]["launches_by_method"].items()},
+             path="phase 11: one pair's pyramid by the scan and grid "
+                  "searches", infer_launches=infer_launches[
+                      "element_gather"],
+             other_shapes=[dict(what="probe (phase 3b)", **gather_elements)],
+             **options["search"]["k5b"]),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -147,9 +147,9 @@ GATHER_VARIANTS = {
                  "two vectors per batch"),
     "unroll_8": ([("constexpr int kUnroll = 4;", "constexpr int kUnroll = 8;")],
                  "eight vectors per batch"),
-    "no_shared": ([("if (row_bytes <= (size_t)max_shared_bytes())",
-                    "if (false)")],
-                  "axis 1 from device memory (L1), no shared-memory copy"),
+    "no_shared": ([("if (row_bytes <= (size_t)max_shared_bytes() &&",
+                    "if (false &&")],
+                  "axis 1 by the direct kernel, no shared-memory copy"),
     "threads_128": ([("  threads = std::min((long long)kThreads,",
                       "  threads = std::min(128LL,")],
                     "128 threads per block"),
@@ -224,7 +224,8 @@ KINDS = {
     "fwd": ("flash_attn_fwd.cu", FWD_VARIANTS,
             ["flash_fwd_f32_kernelILi32E", "flash_fwd_bf16_kernelILi32E"]),
     "gather": ("gather.cu", GATHER_VARIANTS,
-               ["element_gather_kernelIjLi1ELb1E"]),
+               ["element_gather_kernelIjLb1E",
+                "element_gather_direct_kernelIjj"]),
     "rows": ("gather.cu", ROWS_VARIANTS, ["row_gather_narrow_kernelIji"]),
     "segsum": ("segsum.cu", SEGSUM_VARIANTS,
                ["segsum_kernelIf", "transpose_"]),

@@ -6,9 +6,10 @@ works as is).  The port's submodules carry the flax names, so the mapping is:
   * "/" becomes ".";
   * a Dense `kernel` (in, out) becomes a Linear `weight` (out, in);
   * a LayerNorm `scale` becomes `weight`;
-  * `bias`, the KPConv `weights` (P, Cin, Cout) and the InfoNCE matrices
-    `W` (`feature_criterion/W`, `feature_criterion_un/W`) keep name and
-    shape.
+  * `bias`, the KPConv `weights` (P, Cin, Cout), a deformable KPConv's
+    `offset_weights` (P, Cin, (3 + modulated) P) and `offset_bias`, and the
+    InfoNCE matrices `W` (`feature_criterion/W`, `feature_criterion_un/W`)
+    keep name and shape.
 Any leaf without a counterpart, and any parameter left unfilled, raises.
 `jax_params_from_state_dict` is the inverse mapping.
 """
@@ -18,6 +19,9 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+# leaves that keep their name and shape
+_SAME = ("bias", "weights", "W", "offset_weights", "offset_bias")
 
 
 def state_dict_from_jax(flat: Mapping[str, np.ndarray],
@@ -32,7 +36,7 @@ def state_dict_from_jax(flat: Mapping[str, np.ndarray],
             name, value = f"{path}.weight", value.T
         elif leaf == "scale":
             name = f"{path}.weight"
-        elif leaf in ("bias", "weights", "W"):
+        elif leaf in _SAME:
             name = f"{path}.{leaf}"
         else:
             raise ValueError(f"unknown parameter leaf {key!r}")
@@ -67,7 +71,7 @@ def jax_params_from_state_dict(model: torch.nn.Module
             leaf, value = "kernel", value.T
         elif name in layer_norm:
             leaf = "scale"
-        elif leaf not in ("bias", "weights", "W"):
+        elif leaf not in _SAME:
             raise ValueError(f"no JAX counterpart for {name!r}")
         flat[f"{path.replace('.', '/')}/{leaf}"] = np.ascontiguousarray(value)
     return flat

@@ -67,3 +67,41 @@ def compute_rigid_transform(a: torch.Tensor, b: torch.Tensor,
     rot = torch.where((det > 0)[..., None, None], rot_pos, rot_neg)
     trans = -rot @ centroid_a.transpose(-2, -1) + centroid_b.transpose(-2, -1)
     return torch.where(finite, torch.cat([rot, trans], dim=-1), float("nan"))
+
+
+# SO(3) exponential and logarithm maps (counterparts of so3_hat ... so3_log
+# in regtr_tpu/core/se3.py).
+
+def so3_hat(omega: torch.Tensor) -> torch.Tensor:
+    """(..., 3) -> (..., 3, 3) skew-symmetric matrices."""
+    wx, wy, wz = omega.unbind(-1)
+    zeros = torch.zeros_like(wx)
+    return torch.stack([torch.stack([zeros, -wz, wy], dim=-1),
+                        torch.stack([wz, zeros, -wx], dim=-1),
+                        torch.stack([-wy, wx, zeros], dim=-1)], dim=-2)
+
+
+def so3_vee(mat: torch.Tensor) -> torch.Tensor:
+    return torch.stack([mat[..., 2, 1], mat[..., 0, 2], mat[..., 1, 0]],
+                       dim=-1)
+
+
+def so3_exp(omega: torch.Tensor) -> torch.Tensor:
+    """Rodrigues' formula, (..., 3) -> (..., 3, 3)."""
+    theta = torch.linalg.vector_norm(omega, dim=-1,
+                                     keepdim=True).clamp_min(1e-12)
+    k = so3_hat(omega / theta)
+    theta = theta[..., None]
+    eye = torch.eye(3, dtype=omega.dtype, device=omega.device).expand(
+        k.shape)
+    return eye + torch.sin(theta) * k + (1.0 - torch.cos(theta)) * (k @ k)
+
+
+def so3_log(rot: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) -> (..., 3) rotation vector."""
+    trace = rot[..., 0, 0] + rot[..., 1, 1] + rot[..., 2, 2]
+    theta = torch.arccos(torch.clamp(0.5 * (trace - 1.0), -1.0 + 1e-7,
+                                     1.0 - 1e-7))[..., None]
+    vee = so3_vee(rot - rot.transpose(-1, -2))
+    scale = torch.where(theta < 1e-6, 0.5, theta / (2.0 * torch.sin(theta)))
+    return scale * vee

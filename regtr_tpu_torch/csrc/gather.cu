@@ -31,7 +31,7 @@
 // vectors of one output row, then of the next, so a warp's index loads and
 // output stores are coalesced.  Narrow rows of one to four vectors under
 // 16 bytes (the fp32 coordinate rows: 12 B, three 4-byte vectors): a block
-// gathers kNarrowRows rows per thread into shared memory, each thread the
+// gathers kDirectRows rows per thread into shared memory, each thread the
 // rows of two 16-byte vectors of int32 indices (four of int64), and then
 // writes the block's output span, which is contiguous, as 16-byte vectors
 // with neighbouring threads on neighbouring vectors (the first design, one
@@ -63,8 +63,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr long long kMaxBlocks = 1LL << 20;  // the rest by a grid-stride loop
-constexpr int kNarrowRows = 8;  // rows per thread (4: 14 % slower)
-constexpr int kNarrowBlockRows = kThreads * kNarrowRows;
+constexpr int kDirectRows = 8;  // rows per thread (4: 14 % slower)
+constexpr int kDirectBlockRows = kThreads * kDirectRows;
 constexpr bool kVectorIds = true;  // indices as 16-byte loads when aligned
 constexpr bool kStageVectors = true;  // a thread's rows staged as 16 bytes
 // I: the type of the flat vector counter, 32-bit when the count allows (a
@@ -81,17 +81,17 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// kNarrowRows consecutive indices from idx[0..n) (n may be short at the
+// kDirectRows consecutive indices from idx[0..n) (n may be short at the
 // span's end): 16-byte loads when `vec` (idx on 16 bytes, n full) and the
 // indices fill whole 16-byte vectors.
 template <typename Ix>
 __device__ __forceinline__ void load_ids(const Ix* idx, int n, bool vec,
-                                         Ix (&id)[kNarrowRows]) {
+                                         Ix (&id)[kDirectRows]) {
   constexpr int kPer16 = 16 / sizeof(Ix);
-  if constexpr (kNarrowRows % kPer16 == 0) {
-    if (vec && n >= kNarrowRows) {
+  if constexpr (kDirectRows % kPer16 == 0) {
+    if (vec && n >= kDirectRows) {
 #pragma unroll
-      for (int h = 0; h < kNarrowRows / kPer16; ++h) {
+      for (int h = 0; h < kDirectRows / kPer16; ++h) {
         union {
           uint4 v;
           Ix e[kPer16];
@@ -104,16 +104,16 @@ __device__ __forceinline__ void load_ids(const Ix* idx, int n, bool vec,
     }
   }
 #pragma unroll
-  for (int k = 0; k < kNarrowRows; ++k) id[k] = k < n ? idx[k] : Ix(0);
+  for (int k = 0; k < kDirectRows; ++k) id[k] = k < n ? idx[k] : Ix(0);
 }
 
-// One block per kNarrowBlockRows rows: gather into shared memory (the rows
+// One block per kDirectBlockRows rows: gather into shared memory (the rows
 // at their output offsets), then copy the block's contiguous output span.
-// A thread's kNarrowRows rows are contiguous in the stage: it writes them
+// A thread's kDirectRows rows are contiguous in the stage: it writes them
 // as 16-byte vectors when they fill whole ones (the 12-byte rows: three
 // vectors, without bank conflicts, where twelve 4-byte stores at a 48-byte
 // stride would conflict four ways).  `out16`: out on 16 bytes, so the span
-// (kNarrowBlockRows * row bytes after out, a multiple of 2048 bytes)
+// (kDirectBlockRows * row bytes after out, a multiple of 2048 bytes)
 // starts on 16 bytes too.
 template <typename V, typename Ix, int kVecs>
 __global__ void __launch_bounds__(kThreads)
@@ -122,27 +122,27 @@ __global__ void __launch_bounds__(kThreads)
                              unsigned char* __restrict__ out, long long rows,
                              bool ids16, bool out16) {
   constexpr int kRowBytes = kVecs * (int)sizeof(V);
-  constexpr int kThreadVecs = kNarrowRows * kVecs;
+  constexpr int kThreadVecs = kDirectRows * kVecs;
   constexpr bool kStage16 = kStageVectors &&
                             kThreadVecs * sizeof(V) % 16 == 0;
   extern __shared__ __align__(16) unsigned char stage[];
-  const long long base = (long long)blockIdx.x * kNarrowBlockRows;
-  const int n = (int)min((long long)kNarrowBlockRows, rows - base);
-  const int r0 = threadIdx.x * kNarrowRows;
-  Ix id[kNarrowRows];
+  const long long base = (long long)blockIdx.x * kDirectBlockRows;
+  const int n = (int)min((long long)kDirectBlockRows, rows - base);
+  const int r0 = threadIdx.x * kDirectRows;
+  Ix id[kDirectRows];
   load_ids(idx + base + r0, n - r0, kVectorIds && ids16, id);
   union {
     V v[kThreadVecs];
     uint4 q[kStage16 ? kThreadVecs * sizeof(V) / 16 : 1];
   } mine;
 #pragma unroll
-  for (int k = 0; k < kNarrowRows; ++k) {
+  for (int k = 0; k < kDirectRows; ++k) {
     const V* src = table + (int64_t)id[k] * kVecs;
 #pragma unroll
     for (int i = 0; i < kVecs; ++i)
       if (r0 + k < n) mine.v[k * kVecs + i] = src[i];
   }
-  if (kStage16 && r0 + kNarrowRows <= n) {
+  if (kStage16 && r0 + kDirectRows <= n) {
     uint4* s = reinterpret_cast<uint4*>(stage + r0 * kRowBytes);
 #pragma unroll
     for (int c = 0; c < (kStage16 ? kThreadVecs * sizeof(V) / 16 : 0); ++c)
@@ -171,9 +171,9 @@ __global__ void __launch_bounds__(kThreads)
 template <typename V, typename Ix, int kVecs>
 int launch_narrow(const V* table, const Ix* idx, void* out, long long rows,
                   cudaStream_t s) {
-  const long long blocks = (rows + kNarrowBlockRows - 1) / kNarrowBlockRows;
+  const long long blocks = (rows + kDirectBlockRows - 1) / kDirectBlockRows;
   if (blocks >= (1LL << 31)) return (int)cudaErrorInvalidConfiguration;
-  const size_t smem = (size_t)kNarrowBlockRows * kVecs * sizeof(V);
+  const size_t smem = (size_t)kDirectBlockRows * kVecs * sizeof(V);
   auto kernel = row_gather_narrow_kernel<V, Ix, kVecs>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -244,13 +244,16 @@ int launch_rows_any(const void* table, const Ix* idx, void* out,
 // batch: their indices as 16-byte loads of two int64 each (all of a batch's
 // loads in flight together), their values gathered, one 16-byte store per
 // vector.  The row's head and tail off those 16 bytes go element by element.
-//   kShared (axis 1 only): the block copies source row (b, i), which every
-//   output of the row reads, into shared memory by cp.async, keeping the
-//   row's offset modulo 16 bytes; the first batch of indices loads while
-//   the row lands; then it gathers from shared memory: the row is read from
-//   device memory once instead of once per output.
-//   Otherwise (axis 0, or a row wider than a block's shared memory) the
-//   values come from device memory.
+//   kShared (axis 1; this kernel's only axis-1 form): the block copies
+//   source row (b, i), which every output of the row reads, into shared
+//   memory by cp.async, keeping the row's offset modulo 16 bytes; the
+//   first batch of indices loads while the row lands; then it gathers from
+//   shared memory: the row is read from device memory once instead of once
+//   per output.
+//   Otherwise, on axis 0, the values come from device memory.  An axis-1
+//   gather that is not staged (a row wider than a block's shared memory,
+//   or one whose outputs are few beside its width) goes to
+//   element_gather_direct_kernel, one thread per output.
 struct ElementArgs {
   const void* src;
   const int64_t* idx;
@@ -266,7 +269,7 @@ struct Vec16 {
   static constexpr int kVec = 16 / sizeof(T);
 };
 
-template <typename T, int kAxis, bool kShared>
+template <typename T, bool kShared>
 __global__ void __launch_bounds__(kThreads)
     element_gather_kernel(const ElementArgs a, int chunk) {
   constexpr int kVec = Vec16<T>::kVec;
@@ -313,7 +316,7 @@ __global__ void __launch_bounds__(kThreads)
 
   // Source row i (axis 1) or the whole (src_rows, src_cols) slice (axis 0):
   // the value of index k in column j is row[k] or row[k * src_cols + j].
-  const T* row = kAxis == 1 ? src + i * a.src_cols : src;
+  const T* row = kShared ? src + i * a.src_cols : src;
   long long j = head + (long long)threadIdx.x * kVec;
   if constexpr (kShared) {
     // The row's bytes at the same offset modulo 16 in shared memory.
@@ -341,7 +344,7 @@ __global__ void __launch_bounds__(kThreads)
     load_batch(j);
   }
   auto value = [&](int64_t kk, long long jj) -> T {
-    return kAxis == 1 ? row[kk] : row[kk * a.src_cols + jj];
+    return kShared ? row[kk] : row[kk * a.src_cols + jj];
   };
 
   for (; j < body_end; j += kUnroll * step) {
@@ -365,6 +368,43 @@ __global__ void __launch_bounds__(kThreads)
     out[jj] = value(idx[jj], jj);
 }
 
+// Axis 1, unstaged: one thread per output, over all (b, i, j) at once,
+// so that a block spans many short rows instead of idling most of its
+// threads on one, and a wide row spreads over many blocks.  A block takes
+// kThreads * kDirect consecutive outputs, each thread kDirect of them
+// kThreads apart (their index loads all in flight before their gathers):
+// a warp's loads and stores are coalesced and a block's rows adjacent.  I
+// numbers the outputs, 32-bit when they fit (its divisions are a few
+// instructions where 64-bit ones are a long emulated sequence).
+constexpr int kDirect = 4;
+
+template <typename T, typename I>
+__global__ void __launch_bounds__(kThreads)
+    element_gather_direct_kernel(const ElementArgs a, I total) {
+  const I cols = (I)a.cols, rows = (I)a.rows;
+  const I e0 = (I)blockIdx.x * (kThreads * kDirect) + threadIdx.x;
+  long long k[kDirect], at[kDirect], src_row[kDirect];
+#pragma unroll
+  for (int u = 0; u < kDirect; ++u) {
+    const I e = e0 + u * kThreads;
+    if (e >= total) continue;
+    const I r = e / cols;  // (b, i) as one row number
+    const I j = e - r * cols;
+    const I b = r / rows;
+    const I i = r - b * rows;
+    at[u] = (long long)b * a.out_bstride + (long long)i * a.cols + j;
+    src_row[u] = (long long)b * a.src_bstride + (long long)i * a.src_cols;
+    k[u] = __ldcs(reinterpret_cast<const long long*>(
+        a.idx + (long long)b * a.idx_bstride + (long long)i * a.cols + j));
+  }
+#pragma unroll
+  for (int u = 0; u < kDirect; ++u) {
+    if (e0 + u * kThreads >= total) continue;
+    __stcs(static_cast<T*>(a.out) + at[u],
+           static_cast<const T*>(a.src)[src_row[u] + k[u]]);
+  }
+}
+
 int max_shared_bytes() {
   static int bytes = -1;
   if (bytes < 0) {
@@ -377,18 +417,19 @@ int max_shared_bytes() {
   return bytes;
 }
 
-template <typename T, int kAxis, bool kShared>
+template <typename T, bool kShared>
 int launch_elements_as(const ElementArgs& a, long long batch,
                        size_t smem_bytes, cudaStream_t s) {
   constexpr int kVec = Vec16<T>::kVec;
-  auto kernel = element_gather_kernel<T, kAxis, kShared>;
+  auto kernel = element_gather_kernel<T, kShared>;
   if (smem_bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
     if (err != cudaSuccess) return (int)err;
   }
-  // kShared: one block per row reads the row once; else chunks of at most
-  // kThreads vectors, so that a wide row spreads over several blocks.
+  // kShared: one block per row reads the row once; else (axis 0) chunks of
+  // at most kThreads vectors, so that a wide row spreads over several
+  // blocks.
   const long long chunk =
       kShared ? a.cols : (long long)kThreads * kVec * kUnroll;
   const long long chunks = (a.cols + chunk - 1) / chunk;
@@ -406,12 +447,29 @@ int launch_elements_as(const ElementArgs& a, long long batch,
 template <typename T>
 int launch_elements(const ElementArgs& a, long long batch, int axis,
                     cudaStream_t s) {
-  if (axis == 0) return launch_elements_as<T, 0, false>(a, batch, 0, s);
-  // The source row in shared memory, with up to 16 bytes of alignment slack.
+  if (axis == 0) return launch_elements_as<T, false>(a, batch, 0, s);
+  // The source row in shared memory, with up to 16 bytes of alignment slack,
+  // when it fits and the row's outputs would read as many bytes from device
+  // memory one by one (a 32-byte sector each, at worst) as the row holds: a
+  // neighbor search's merge takes 32 of 1056 candidates a row, and staging
+  // its rows would read 4x the bytes of the direct gather.
   const size_t row_bytes = (size_t)a.src_cols * sizeof(T) + 32;
-  if (row_bytes <= (size_t)max_shared_bytes())
-    return launch_elements_as<T, 1, true>(a, batch, row_bytes, s);
-  return launch_elements_as<T, 1, false>(a, batch, 0, s);
+  if (row_bytes <= (size_t)max_shared_bytes() &&
+      (size_t)a.cols * 32 >= (size_t)a.src_cols * sizeof(T))
+    return launch_elements_as<T, true>(a, batch, row_bytes, s);
+  const long long total = batch * a.rows * a.cols;
+  const long long per_block = (long long)kThreads * kDirect;
+  const long long blocks = (total + per_block - 1) / per_block;
+  if (blocks >= (1LL << 31)) return (int)cudaErrorInvalidConfiguration;
+  // 32-bit numbering while every block's outputs stay below 2^32
+  if (blocks * per_block < (1LL << 32))
+    element_gather_direct_kernel<T, uint32_t>
+        <<<(unsigned)blocks, kThreads, 0, s>>>(a, (uint32_t)total);
+  else
+    element_gather_direct_kernel<T, unsigned long long>
+        <<<(unsigned)blocks, kThreads, 0, s>>>(a,
+                                               (unsigned long long)total);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace

@@ -25,7 +25,8 @@ _MODELS = {"regtr.RegTR": RegTR, "RegTR": RegTR}
 def init_parameters(model: nn.Module, generator: torch.Generator):
     """Seeded init with flax's defaults: Dense kernels lecun-normal
     (truncated at 2 std), biases zero, LayerNorm scale one, KPConv weights
-    U(+-1/sqrt(P*Cin)), the InfoNCE W normal with stddev 0.1.  Modules are
+    and deformable offset weights U(+-1/sqrt(P*Cin)), offset biases zero,
+    the InfoNCE W normal with stddev 0.1.  Modules are
     visited in registration order."""
     def fill(param, draw):
         with torch.no_grad():
@@ -47,6 +48,10 @@ def init_parameters(model: nn.Module, generator: torch.Generator):
             bound = 1.0 / math.sqrt(p * cin)
             fill(m.weights, lambda t: nn.init.uniform_(
                 t, -bound, bound, generator=generator))
+            if m.deformable:
+                fill(m.offset_weights, lambda t: nn.init.uniform_(
+                    t, -bound, bound, generator=generator))
+                fill(m.offset_bias, torch.zeros_like)
         elif isinstance(m, NormBlock) and not m.use_bn:
             fill(m.bias, torch.zeros_like)
         elif isinstance(m, InfoNCELoss):

@@ -10,6 +10,13 @@ and positional embedding), `condition` (cross-attention transformer) and
 `head_and_pose` (correspondence head and the weighted Kabsch solve over all
 layers and pairs).  `compute_loss` adds the training losses on top of the
 forward.
+
+Randomness is explicit, as in the JAX package's `apply(..., rngs=...)`: a
+call that is not deterministic with `dropout` > 0 needs a
+`torch.Generator` on the model's device for its dropout masks, and raises
+without one (JAX raises for a missing 'dropout' rng).  The sampled circle
+loss seeds its own generator from the batch (losses/feature.py
+`correspondence_seed`), as JAX derives its key from it.
 """
 from __future__ import annotations
 
@@ -21,12 +28,14 @@ import torch.nn as nn
 from ..core.pairs import split_pairs
 from ..core.se3 import compute_rigid_transform, se3_inv, se3_transform
 from ..losses.corr import corr_loss
-from ..losses.feature import InfoNCELoss
+from ..losses.feature import (InfoNCELoss, circle_loss, circle_loss_sampled,
+                              correspondence_seed)
 from ..losses.overlap import overlap_loss
 from ..nn.backbone import KPFEncoder, encoder_out_dim
 from ..nn.blocks import compute_dtype
-from ..nn.heads import CorrespondenceRegressor
-from ..nn.pos_embed import PositionEmbeddingCoordsSine
+from ..nn.heads import CorrespondenceDecoder, CorrespondenceRegressor
+from ..nn.pos_embed import (PositionEmbeddingCoordsSine,
+                             PositionEmbeddingLearned)
 from ..nn.transformer import TransformerCrossEncoder
 from ..ops.pyramid import PyramidSpec, build_pyramid, compute_overlap_pyramid
 
@@ -34,20 +43,16 @@ from ..ops.pyramid import PyramidSpec, build_pyramid, compute_overlap_pyramid
 class RegTR(nn.Module):
     def __init__(self, cfg, spec: PyramidSpec):
         super().__init__()
-        if cfg.get("neighbor_method", "brute") != "brute":
-            raise NotImplementedError("only the brute neighbor search is "
-                                      "ported")
-        if cfg.get("pos_emb_type", "sine") != "sine":
-            raise NotImplementedError("only the sine embedding is ported")
-        if not cfg.get("direct_regress_coor", False):
-            raise NotImplementedError("only direct_regress_coor is ported")
         self.cfg = cfg
         self.spec = spec
         d_embed = cfg["d_embed"]
         self.kpf_encoder = KPFEncoder(cfg)
         self.feat_proj = nn.Linear(encoder_out_dim(cfg), d_embed)
-        self.pos_embed = PositionEmbeddingCoordsSine(
-            3, d_embed, scale=cfg.get("pos_emb_scaling", 1.0))
+        if cfg.get("pos_emb_type", "sine") == "sine":
+            self.pos_embed = PositionEmbeddingCoordsSine(
+                3, d_embed, scale=cfg.get("pos_emb_scaling", 1.0))
+        else:
+            self.pos_embed = PositionEmbeddingLearned(3, d_embed)
         self.transformer_encoder = TransformerCrossEncoder(
             d_model=d_embed,
             nhead=cfg["nhead"],
@@ -58,11 +63,18 @@ class RegTR(nn.Module):
             sa_val_has_pos_emb=cfg.get("sa_val_has_pos_emb", True),
             ca_val_has_pos_emb=cfg.get("ca_val_has_pos_emb", True),
             compute_dtype=compute_dtype(cfg),
+            dropout=float(cfg.get("dropout", 0.0)),
         )
-        self.head = CorrespondenceRegressor(d_embed)
+        if cfg.get("direct_regress_coor", False):
+            self.head = CorrespondenceRegressor(d_embed)
+        else:
+            self.head = CorrespondenceDecoder(
+                d_embed, cfg.get("corr_decoder_has_pos_emb", True),
+                num_neighbors=int(cfg.get("corr_decoder_num_neighbors", 0)))
         # The InfoNCE criteria hold trained parameters (W), so they are
         # submodules although only the loss uses them.  Registered last, so
-        # the seeded init draws the forward's parameters as before.
+        # the seeded init draws the forward's parameters as before.  The
+        # circle losses have no parameters.
         if cfg.get("feature_loss_type", "infonce") == "infonce":
             self.feature_criterion = InfoNCELoss(d_embed, cfg["r_p"],
                                                  cfg["r_n"])
@@ -70,10 +82,14 @@ class RegTR(nn.Module):
                                                     cfg["r_n"])
 
     def preprocess(self, points, mask):
+        cfg = self.cfg
         with torch.no_grad():   # tables and coordinates: data, not trained
-            return build_pyramid(points, mask, self.spec,
-                                 sort_input=bool(self.cfg.get("sort_input",
-                                                              True)))
+            return build_pyramid(
+                points, mask, self.spec,
+                sort_input=bool(cfg.get("sort_input", True)),
+                method=cfg.get("neighbor_method", "brute"),
+                chunk=int(cfg.get("neighbor_chunk", 1024)),
+                cell_cap=int(cfg.get("cell_capacity", 32)))
 
     def encode(self, levels):
         """-> (feats_un (2B, Nc, D), positional embedding (2B, Nc, D))."""
@@ -83,13 +99,18 @@ class RegTR(nn.Module):
         feats_enc, _ = self.kpf_encoder(feats0, levels)
         return self.feat_proj(feats_enc), self.pos_embed(levels[-1].points)
 
-    def condition(self, feats_un, pe, coarse_mask):
+    def condition(self, feats_un, pe, coarse_mask, generator=None):
+        """The transformer; with a generator, its dropout is on."""
         pos = pe if self.cfg.get("transformer_encoder_has_pos_emb",
                                  True) else None
-        return self.transformer_encoder(feats_un, pos, coarse_mask)
+        return self.transformer_encoder(feats_un, pos, coarse_mask,
+                                        generator)
 
-    def head_and_pose(self, feats_cond, coarse_points, coarse_mask):
-        corr, overlap_logits = self.head(feats_cond)
+    def head_and_pose(self, feats_cond, coarse_points, coarse_mask, pe):
+        """The head (the decoder reads the positional embedding `pe`) and
+        the pose solve."""
+        corr, overlap_logits = self.head(feats_cond, coarse_points, pe,
+                                         coarse_mask)
         src_xyz, tgt_xyz = split_pairs(coarse_points)
         src_mask, tgt_mask = split_pairs(coarse_mask)
         src_corr, tgt_corr = split_pairs(corr, dim=1)
@@ -110,17 +131,32 @@ class RegTR(nn.Module):
             pose = compute_rigid_transform(a, bb, w)         # (L, B, 3, 4)
         return corr, overlap_logits[..., 0], pose
 
-    def forward(self, points, mask) -> Dict[str, Any]:
-        """points (2B, N0, 3) fp32; mask (2B, N0) bool."""
-        return self.forward_levels(self.preprocess(points, mask))
+    def _dropout_generator(self, deterministic, generator):
+        """The generator the transformer's dropout draws from, or None when
+        dropout is off (deterministic, or a rate of 0)."""
+        if deterministic or float(self.cfg.get("dropout", 0.0)) == 0.0:
+            return None
+        if generator is None:
+            raise ValueError("dropout > 0 and deterministic=False need a "
+                             "torch.Generator for the dropout masks")
+        return generator
 
-    def forward_levels(self, levels) -> Dict[str, Any]:
+    def forward(self, points, mask, deterministic: bool = True,
+                generator=None) -> Dict[str, Any]:
+        """points (2B, N0, 3) fp32; mask (2B, N0) bool."""
+        return self.forward_levels(self.preprocess(points, mask),
+                                   deterministic, generator)
+
+    def forward_levels(self, levels, deterministic: bool = True,
+                       generator=None) -> Dict[str, Any]:
         """The forward after the pyramid, on `preprocess`'s levels."""
         coarse = levels[-1]
         feats_un, pe = self.encode(levels)
-        feats_cond = self.condition(feats_un, pe, coarse.mask)
+        feats_cond = self.condition(
+            feats_un, pe, coarse.mask,
+            self._dropout_generator(deterministic, generator))
         corr, overlap_logits, pose = self.head_and_pose(
-            feats_cond, coarse.points, coarse.mask)
+            feats_cond, coarse.points, coarse.mask, pe)
         return {
             "levels": levels,
             "feats_un": feats_un,              # (2B, Nc, D)
@@ -132,27 +168,26 @@ class RegTR(nn.Module):
             "pose": pose,                      # (L, B, 3, 4)
         }
 
-    def compute_loss(self, points, mask, pose_gt, overlap0):
+    def compute_loss(self, points, mask, pose_gt, overlap0,
+                     deterministic: bool = False, generator=None):
         """Forward + all training losses -> (losses incl. 'total', outputs).
 
         pose_gt (B, 3, 4) src->tgt; overlap0 (2B, N0) GT overlap labels at
-        the input level, in the input's order.
+        the input level, in the input's order.  Not deterministic by
+        default, as in the JAX package: with `dropout` > 0 it then needs
+        `generator`.
         """
         return self.loss_levels(self.preprocess(points, mask), pose_gt,
-                                overlap0)
+                                overlap0, deterministic, generator)
 
-    def loss_levels(self, levels, pose_gt, overlap0):
-        """`compute_loss` on `preprocess`'s levels: BCE overlap loss,
-        InfoNCE on conditioned and unconditioned features, and the
-        bidirectional overlap-weighted correspondence loss."""
+    def loss_levels(self, levels, pose_gt, overlap0,
+                    deterministic: bool = False, generator=None):
+        """`compute_loss` on `preprocess`'s levels: BCE overlap loss, the
+        feature loss (InfoNCE, circle or sampled circle) on conditioned and
+        unconditioned features, and the bidirectional overlap-weighted
+        correspondence loss."""
         cfg = self.cfg
-        if float(cfg.get("dropout", 0.0)) != 0.0:
-            raise NotImplementedError("training with dropout > 0 is not "
-                                      "ported")
-        if cfg.get("feature_loss_type", "infonce") != "infonce":
-            raise NotImplementedError("only the InfoNCE feature loss is "
-                                      "ported")
-        out = self.forward_levels(levels)
+        out = self.forward_levels(levels, deterministic, generator)
         num_layers = cfg["num_encoder_layers"]
         losses: Dict[str, torch.Tensor] = {}
         weights: Dict[str, float] = {}
@@ -172,14 +207,30 @@ class RegTR(nn.Module):
             weights[f"overlap_{i}"] = cfg.get("wt_overlap", 1.0)
 
         src_kp_gt_warped = se3_transform(pose_gt, src_kp)
+        feat_type = cfg.get("feature_loss_type", "infonce")
+
+        def feature_loss(criterion, f_src, f_tgt, salt):
+            args = (f_src, f_tgt, src_kp_gt_warped, tgt_kp, src_mask,
+                    tgt_mask)
+            if feat_type == "infonce":
+                return criterion(*args)
+            if feat_type == "circle_sampled":
+                gen = torch.Generator(device=src_kp.device).manual_seed(
+                    correspondence_seed(src_kp_gt_warped, salt))
+                return circle_loss_sampled(
+                    *args, cfg["r_p"], cfg["r_n"], gen,
+                    n_sample=int(cfg.get("circle_n_sample", 256)))
+            return circle_loss(*args, cfg["r_p"], cfg["r_n"])
+
         for i in cfg.get("feature_loss_on", [num_layers - 1]):
             f_src, f_tgt = split_pairs(out["feats_cond"][i])
-            losses[f"feature_{i}"] = self.feature_criterion(
-                f_src, f_tgt, src_kp_gt_warped, tgt_kp, src_mask, tgt_mask)
+            losses[f"feature_{i}"] = feature_loss(
+                getattr(self, "feature_criterion", None), f_src, f_tgt, i)
             weights[f"feature_{i}"] = cfg.get("wt_feature", 0.1)
         fu_src, fu_tgt = split_pairs(out["feats_un"])
-        losses["feature_un"] = self.feature_criterion_un(
-            fu_src, fu_tgt, src_kp_gt_warped, tgt_kp, src_mask, tgt_mask)
+        losses["feature_un"] = feature_loss(
+            getattr(self, "feature_criterion_un", None), fu_src, fu_tgt,
+            num_layers)
         weights["feature_un"] = cfg.get("wt_feature_un", 0.0)
 
         pose_gt_inv = se3_inv(pose_gt)

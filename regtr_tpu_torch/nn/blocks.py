@@ -1,5 +1,7 @@
 """KPConv blocks over the dense masked layout (counterpart of
-regtr_tpu/nn/blocks.py, rigid path).
+regtr_tpu/nn/blocks.py): rigid and deformable (`*deformable*` block names,
+`modulated`) KPConv, per-block kernel dispositions from
+`kernel_dispositions_file`, and the unary blocks.
 
 Submodule and parameter names follow the flax names, so that converted
 JAX parameters load by name (regtr_tpu_torch/convert.py).
@@ -14,9 +16,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..core.masking import masked_instance_norm
-from ..ops.kpconv import (GatherIndex, kpconv_apply, kpconv_fused_gather,
-                          max_pool)
-from ..utils.kernel_points import load_kernel_points
+from ..ops.kpconv import (GatherIndex, kpconv_apply, kpconv_deformable,
+                          kpconv_fused_gather, max_pool)
+from ..utils.kernel_points import (load_kernel_points,
+                                   lookup_block_dispositions)
 
 LEAKY_SLOPE = 0.1
 
@@ -29,13 +32,6 @@ def compute_dtype(cfg):
 
 def leaky_relu(x):
     return F.leaky_relu(x, negative_slope=LEAKY_SLOPE)
-
-
-def _unsupported(cfg, block_name):
-    if "deform" in block_name:
-        raise NotImplementedError(f"deformable block {block_name}: not ported")
-    if cfg.get("kernel_dispositions_file"):
-        raise NotImplementedError("kernel_dispositions_file: not ported")
 
 
 class NormBlock(nn.Module):
@@ -51,6 +47,18 @@ class NormBlock(nn.Module):
         if self.use_bn:
             return masked_instance_norm(x, mask)
         return x + self.bias
+
+
+class UnaryBlock2(nn.Module):
+    """Linear(in, in) -> ReLU -> Linear(in, out), both with biases."""
+
+    def __init__(self, in_dim: int, out_dim: int):
+        super().__init__()
+        self.mlp0 = nn.Linear(in_dim, in_dim)
+        self.mlp1 = nn.Linear(in_dim, out_dim)
+
+    def forward(self, x, mask=None):
+        return self.mlp1(F.relu(self.mlp0(x)))
 
 
 class UnaryBlock(nn.Module):
@@ -70,13 +78,23 @@ class UnaryBlock(nn.Module):
 
 class KPConvLayer(nn.Module):
     """The KPConv op with trainable (P, Cin, Cout) weights and fixed,
-    deterministic kernel points (a non-persistent buffer)."""
+    deterministic kernel points (a non-persistent buffer).
+
+    Deformable: also `offset_weights` (P, Cin, (3 + modulated) * P) and
+    `offset_bias`, the rigid KPConv that predicts the kernel points'
+    offsets (ops/kpconv.py `kpconv_deformable`).  The kernel points are
+    block `block_index`'s entry of `kernel_file` when it has one (already
+    scaled), else the seeded generator's.
+    """
 
     def __init__(self, num_kernel_points: int, in_dim: int, out_dim: int,
                  extent: float, radius: float, influence: str = "linear",
                  aggregation: str = "sum", fixed: str = "center",
                  kernel_seed: int = 0, compute_dtype=None,
-                 norm: str = "valid", kernel_method: str = "lloyd"):
+                 norm: str = "valid", kernel_method: str = "lloyd",
+                 deformable: bool = False, modulated: bool = False,
+                 kernel_file: Optional[str] = None,
+                 block_index: Optional[int] = None):
         super().__init__()
         self.extent = extent
         self.radius = radius
@@ -87,12 +105,26 @@ class KPConvLayer(nn.Module):
         self.compute_dtype = compute_dtype
         self.norm = norm
         self.kernel_method = kernel_method
+        self.deformable = deformable
+        self.modulated = modulated
+        self.kernel_file = kernel_file
+        self.block_index = block_index
         self.weights = nn.Parameter(
             torch.empty(num_kernel_points, in_dim, out_dim))
+        if deformable:
+            offset_dim = (3 + int(modulated)) * num_kernel_points
+            self.offset_weights = nn.Parameter(
+                torch.empty(num_kernel_points, in_dim, offset_dim))
+            self.offset_bias = nn.Parameter(torch.zeros(offset_dim))
         self.register_buffer("kernel_points", self._dispositions(),
                              persistent=False)
 
     def _dispositions(self):
+        if self.kernel_file and self.block_index is not None:
+            disp = lookup_block_dispositions(self.kernel_file,
+                                             self.block_index)
+            if disp is not None:
+                return torch.from_numpy(disp)
         return torch.from_numpy(load_kernel_points(
             self.radius, self.weights.shape[0], 3, self.fixed,
             self.kernel_seed, self.kernel_method))
@@ -108,8 +140,20 @@ class KPConvLayer(nn.Module):
         `index`: the neighbor table's GatherIndex, shared with the other
         blocks at that table.  With `geom`, reuses the table's influence
         tensor (feature gather only); without it, computes the geometry
-        from the gathered neighbors and returns it for those blocks.
+        from the gathered neighbors and returns it for those blocks.  A
+        deformable layer's kernel points move per query, so it neither
+        reuses nor returns a geometry.
         """
+        if self.deformable:
+            out = kpconv_deformable(
+                q_pts, s_pts, index, x, self.kernel_points, self.weights,
+                self.offset_weights, self.offset_bias, self.extent,
+                influence=self.influence, aggregation=self.aggregation,
+                modulated=self.modulated, compute_dtype=self.compute_dtype,
+                norm=self.norm)
+            pooled = (max_pool(x_extra, index, self.compute_dtype)
+                      if x_extra is not None else None)
+            return out, pooled, None
         if geom is not None:
             infl, inv_n = geom
             out = kpconv_apply(infl, inv_n, index, x, self.weights,
@@ -126,7 +170,7 @@ class KPConvLayer(nn.Module):
         )
 
 
-def _kpconv_layer(cfg, in_dim, out_dim, radius):
+def _kpconv_layer(cfg, in_dim, out_dim, radius, block_name, block_index):
     return KPConvLayer(
         cfg["num_kernel_points"], in_dim, out_dim,
         radius * cfg["KP_extent"] / cfg["conv_radius"], radius,
@@ -137,6 +181,10 @@ def _kpconv_layer(cfg, in_dim, out_dim, radius):
         compute_dtype=compute_dtype(cfg),
         norm=cfg.get("kpconv_norm", "valid"),
         kernel_method=cfg.get("kernel_point_method", "lloyd"),
+        deformable="deform" in block_name,
+        modulated=bool(cfg.get("modulated", False)),
+        kernel_file=cfg.get("kernel_dispositions_file"),
+        block_index=block_index,
     )
 
 
@@ -168,12 +216,13 @@ def _tables(levels, layer_ind, strided, tables):
 class SimpleBlock(nn.Module):
     """KPConv(out/2) -> norm -> LeakyReLU."""
 
-    def __init__(self, block_name, in_dim, out_dim, radius, layer_ind, cfg):
+    def __init__(self, block_name, in_dim, out_dim, radius, layer_ind, cfg,
+                 block_index=None):
         super().__init__()
-        _unsupported(cfg, block_name)
         self.strided = "strided" in block_name
         self.layer_ind = layer_ind
-        self.kpconv = _kpconv_layer(cfg, in_dim, out_dim // 2, radius)
+        self.kpconv = _kpconv_layer(cfg, in_dim, out_dim // 2, radius,
+                                    block_name, block_index)
         self.norm = NormBlock(out_dim // 2, cfg.get("use_batch_norm", True))
 
     def forward(self, x, levels, tables):
@@ -188,16 +237,17 @@ class SimpleBlock(nn.Module):
 class ResnetBottleneckBlock(nn.Module):
     """unary(out/4) -> KPConv -> norm/relu -> unary(out) + shortcut."""
 
-    def __init__(self, block_name, in_dim, out_dim, radius, layer_ind, cfg):
+    def __init__(self, block_name, in_dim, out_dim, radius, layer_ind, cfg,
+                 block_index=None):
         super().__init__()
-        _unsupported(cfg, block_name)
         use_bn = cfg.get("use_batch_norm", True)
         self.strided = "strided" in block_name
         self.layer_ind = layer_ind
         mid = out_dim // 4
         self.unary1 = (UnaryBlock(in_dim, mid, use_bn) if in_dim != mid
                        else None)
-        self.kpconv = _kpconv_layer(cfg, mid, mid, radius)
+        self.kpconv = _kpconv_layer(cfg, mid, mid, radius, block_name,
+                                    block_index)
         self.norm_conv = NormBlock(mid, use_bn)
         self.unary2 = UnaryBlock(mid, out_dim, use_bn, no_relu=True)
         self.unary_shortcut = (UnaryBlock(in_dim, out_dim, use_bn,

@@ -1,5 +1,6 @@
-"""Sine positional embedding over 3-D coordinates (counterpart of
-PositionEmbeddingCoordsSine in regtr_tpu/nn/pos_embed.py)."""
+"""Positional embeddings over 3-D coordinates (counterparts of
+PositionEmbeddingCoordsSine and PositionEmbeddingLearned in
+regtr_tpu/nn/pos_embed.py)."""
 from __future__ import annotations
 
 import math
@@ -30,3 +31,23 @@ class PositionEmbeddingCoordsSine(nn.Module):
                            torch.cos(pos_divided[..., 1::2])], dim=-1)
         emb = emb.reshape(xyz.shape[:-1] + (-1,))
         return F.pad(emb, (0, padding)) if padding else emb
+
+
+class PositionEmbeddingLearned(nn.Module):
+    """An MLP of widths 32, 64, 128, 256 with ReLUs, then a linear layer to
+    d_model.  The layers carry flax's automatic names, Dense_0 ... Dense_4,
+    so that converted parameters load by name."""
+
+    _WIDTHS = (32, 64, 128, 256)
+
+    def __init__(self, n_dim: int = 3, d_model: int = 256):
+        super().__init__()
+        dims = (n_dim,) + self._WIDTHS + (d_model,)
+        for i in range(len(dims) - 1):
+            self.add_module(f"Dense_{i}", nn.Linear(dims[i], dims[i + 1]))
+
+    def forward(self, xyz):
+        h = xyz
+        for i in range(len(self._WIDTHS)):
+            h = F.relu(getattr(self, f"Dense_{i}")(h))
+        return getattr(self, f"Dense_{len(self._WIDTHS)}")(h)

@@ -1,9 +1,18 @@
 """Cross-attention transformer encoder over paired clouds (counterpart of
-regtr_tpu/nn/transformer.py, inference forward).
+regtr_tpu/nn/transformer.py).
 
 Self-attention runs over the whole interleaved batch of 2B clouds;
 cross-attention is the same attention with keys and values from the partner
 cloud, i.e. the batch with adjacent slots swapped (core/pairs.py).
+
+Dropout (`dropout` > 0) acts only when the caller passes a
+`torch.Generator` (the JAX modules' `deterministic=False` with a 'dropout'
+rng): on the attention probabilities and on each residual branch, flax's
+`nn.Dropout` (keep with probability 1 - p, scale the kept by 1 / (1 - p)),
+the masks drawn from that generator.  Attention then takes the dense path
+(explicit fp32 probabilities), as the JAX package's `_resolve_attn_impl`
+does: the flash kernel has no probability tensor.  Without a generator,
+dropout is off and attention goes through the kernel.
 
 `record_attention(model)` is the attention-map hook (the JAX modules'
 sow("intermediates", "attn")): inside it, every MultiHeadAttention also
@@ -38,17 +47,19 @@ class MultiHeadAttention(nn.Module):
     call also stores maps[name], its probabilities (see there).
     """
 
-    def __init__(self, d_model: int, nhead: int, compute_dtype=None):
+    def __init__(self, d_model: int, nhead: int, compute_dtype=None,
+                 dropout: float = 0.0):
         super().__init__()
         self.nhead = nhead
         self.compute_dtype = compute_dtype
+        self.dropout = dropout
         self.record_to = None
         self.q_proj = nn.Linear(d_model, d_model)
         self.k_proj = nn.Linear(d_model, d_model)
         self.v_proj = nn.Linear(d_model, d_model)
         self.out_proj = nn.Linear(d_model, d_model)
 
-    def forward(self, q, k, v, key_mask):
+    def forward(self, q, k, v, key_mask, generator=None):
         b, nq, d_model = q.shape
         nk = k.shape[1]
         h = self.nhead
@@ -57,12 +68,20 @@ class MultiHeadAttention(nn.Module):
 
         qh, kh, vh = (proj(x).reshape(b, -1, h, d_head) for x, proj in (
             (q, self.q_proj), (k, self.k_proj), (v, self.v_proj)))
+        scale = 1.0 / float(d_head) ** 0.5
+        if self.dropout > 0.0 and generator is not None:
+            attn = attention_probabilities(qh, kh, key_mask, scale)
+            if self.record_to is not None:
+                maps, name = self.record_to
+                maps[name] = attn
+            attn = dropout(attn, self.dropout, generator)
+            out = torch.einsum("bhqk,bkhd->bqhd", attn, vh)
+            return self.out_proj(out.reshape(b, nq, d_model))
 
         def fold(y):
             y = y.transpose(1, 2).reshape(b * h, -1, d_head)
             return y.to(op_dtype).contiguous()
 
-        scale = 1.0 / float(d_head) ** 0.5
         bias = torch.where(key_mask, 0.0, NEG_INF).to(torch.float32)
         bias = bias[:, None, :].expand(b, h, nk).reshape(b * h, nk)
         o = flash_masked_attention(fold(qh), fold(kh), fold(vh),
@@ -73,6 +92,16 @@ class MultiHeadAttention(nn.Module):
         out = o.reshape(b, h, nq, d_head).transpose(1, 2).reshape(b, nq,
                                                                   d_model)
         return self.out_proj(out.float())
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator
+            ) -> torch.Tensor:
+    """flax's nn.Dropout in train mode: keep each element with probability
+    1 - rate (a uniform draw from `generator` below 1 - rate), scaled by
+    1 / (1 - rate); zero elsewhere."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < (
+        1.0 - rate)
+    return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
 def attention_probabilities(qh, kh, key_mask, scale):
@@ -110,55 +139,66 @@ class CrossEncoderLayer(nn.Module):
 
     def __init__(self, d_model, nhead, d_feedforward=1024, activation="relu",
                  pre_norm=True, sa_val_has_pos_emb=True,
-                 ca_val_has_pos_emb=True, compute_dtype=None):
+                 ca_val_has_pos_emb=True, compute_dtype=None, dropout=0.0):
         super().__init__()
         if activation not in ("relu", "gelu"):
             raise ValueError(f"unknown activation {activation}")
         self.activation = activation
+        self.dropout = dropout
         self.pre_norm = pre_norm
         self.sa_val_has_pos_emb = sa_val_has_pos_emb
         self.ca_val_has_pos_emb = ca_val_has_pos_emb
-        self.self_attn = MultiHeadAttention(d_model, nhead, compute_dtype)
-        self.cross_attn = MultiHeadAttention(d_model, nhead, compute_dtype)
+        self.self_attn = MultiHeadAttention(d_model, nhead, compute_dtype,
+                                            dropout)
+        self.cross_attn = MultiHeadAttention(d_model, nhead, compute_dtype,
+                                             dropout)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.norm3 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.linear1 = nn.Linear(d_model, d_feedforward)
         self.linear2 = nn.Linear(d_feedforward, d_model)
 
-    def _ffn(self, x):
+    def _ffn(self, x, drop):
         h = self.linear1(x)
         # flax's nn.gelu defaults to the tanh approximation.
         h = F.relu(h) if self.activation == "relu" else F.gelu(
             h, approximate="tanh")
-        return self.linear2(h)
+        return self.linear2(drop(h))
 
-    def forward(self, x, pos, mask):
+    def forward(self, x, pos, mask, generator=None):
         """x (2B, N, D) paired features, pos (2B, N, D) or None,
-        mask (2B, N)."""
+        mask (2B, N); with a generator, dropout as the module says."""
         def with_pos(t):
             return t if pos is None else t + pos
+
+        def drop(y):
+            if self.dropout == 0.0 or generator is None:
+                return y
+            return dropout(y, self.dropout, generator)
 
         kv_mask = swap_pairs(mask)
         if self.pre_norm:
             x2 = self.norm1(x)
             qk = with_pos(x2)
-            x = x + self.self_attn(qk, qk, qk if self.sa_val_has_pos_emb
-                                   else x2, mask)
+            x = x + drop(self.self_attn(
+                qk, qk, qk if self.sa_val_has_pos_emb else x2, mask,
+                generator))
             x2 = self.norm2(x)
             x2_w_pos = with_pos(x2)
             kv_w_pos = swap_pairs(x2_w_pos)
             v = kv_w_pos if self.ca_val_has_pos_emb else swap_pairs(x2)
-            x = x + self.cross_attn(x2_w_pos, kv_w_pos, v, kv_mask)
-            return x + self._ffn(self.norm3(x))
+            x = x + drop(self.cross_attn(x2_w_pos, kv_w_pos, v, kv_mask,
+                                         generator))
+            return x + drop(self._ffn(self.norm3(x), drop))
         qk = with_pos(x)
-        x = self.norm1(x + self.self_attn(
-            qk, qk, qk if self.sa_val_has_pos_emb else x, mask))
+        x = self.norm1(x + drop(self.self_attn(
+            qk, qk, qk if self.sa_val_has_pos_emb else x, mask, generator)))
         x_w_pos = with_pos(x)
         kv_w_pos = swap_pairs(x_w_pos)
         v = kv_w_pos if self.ca_val_has_pos_emb else swap_pairs(x)
-        x = self.norm2(x + self.cross_attn(x_w_pos, kv_w_pos, v, kv_mask))
-        return self.norm3(x + self._ffn(x))
+        x = self.norm2(x + drop(self.cross_attn(x_w_pos, kv_w_pos, v,
+                                                kv_mask, generator)))
+        return self.norm3(x + drop(self._ffn(x, drop)))
 
 
 class TransformerCrossEncoder(nn.Module):
@@ -167,20 +207,21 @@ class TransformerCrossEncoder(nn.Module):
 
     def __init__(self, d_model, nhead, num_layers, d_feedforward=1024,
                  activation="relu", pre_norm=True, sa_val_has_pos_emb=True,
-                 ca_val_has_pos_emb=True, compute_dtype=None):
+                 ca_val_has_pos_emb=True, compute_dtype=None, dropout=0.0):
         super().__init__()
         self.num_layers = num_layers
         for i in range(num_layers):
             self.add_module(f"layer_{i}", CrossEncoderLayer(
                 d_model, nhead, d_feedforward, activation, pre_norm,
-                sa_val_has_pos_emb, ca_val_has_pos_emb, compute_dtype))
+                sa_val_has_pos_emb, ca_val_has_pos_emb, compute_dtype,
+                dropout))
         self.norm_final = (nn.LayerNorm(d_model, eps=LN_EPS) if pre_norm
                            else None)
 
-    def forward(self, x, pos, mask):
+    def forward(self, x, pos, mask, generator=None):
         intermediates = []
         for i in range(self.num_layers):
-            x = getattr(self, f"layer_{i}")(x, pos, mask)
+            x = getattr(self, f"layer_{i}")(x, pos, mask, generator)
             intermediates.append(self.norm_final(x)
                                  if self.norm_final is not None else x)
         return torch.stack(intermediates, dim=0)

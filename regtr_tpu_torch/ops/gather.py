@@ -8,15 +8,17 @@ Counterpart of the TPU gather kernels of tools/exp_pallas_gather*.py.
 * `element_gather(src, idx, axis)`: out[..., i, j] = src[..., idx[..., i,
   j], j] (axis 0) or src[..., i, idx[..., i, j]] (axis 1) over the last two
   dimensions of a 2-D or batched 3-D tensor.  Plain version: `torch.gather`.
-  No path of the system calls it; it is the port of the per-element probes.
+  The 'scan' and 'grid' neighbor searches (ops/neighbors.py) take their
+  selected candidates' int32 ids with it.
 
 A gather is a copy: the kernels move the source's bits, so they are bitwise
-equal to their plain versions.  Indices are in range: the kernels do not
-check or clamp them.  The row gather takes int32 or int64 indices (the
-backbone's flat ids are int32, ops/kpconv.py `GatherIndex`), the element
-gather int64.  On a CUDA tensor each wrapper launches
-its kernel or raises; only a CPU tensor takes the plain version.  Each
-launch adds one to the wrapper's `.launches`.
+equal to their plain versions (the element gather moves int32 elements as
+it moves fp32 ones: as 4-byte words, whatever their float view).  Indices
+are in range: the kernels do not check or clamp them.  The row gather
+takes int32 or int64 indices (the backbone's flat ids are int32,
+ops/kpconv.py `GatherIndex`), the element gather int64.  On a CUDA tensor
+each wrapper launches its kernel or raises; only a CPU tensor takes the
+plain version.  Each launch adds one to the wrapper's `.launches`.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import torch
 from .cuda_build import CudaLibrary
 
 DTYPES = (torch.float32, torch.bfloat16)
+ELEMENT_DTYPES = DTYPES + (torch.int32,)
 
 
 def _declare(lib):
@@ -57,11 +60,11 @@ def element_gather_reference(src: torch.Tensor, idx: torch.Tensor,
 
 
 def _check_device(x: torch.Tensor, idx: torch.Tensor, what: str,
-                  idx_dtypes=(torch.int64,)):
+                  idx_dtypes=(torch.int64,), dtypes=DTYPES):
     if x.device.type != "cuda":
         raise ValueError(f"no {what} for device {x.device}")
-    if x.dtype not in DTYPES:
-        raise ValueError(f"{what}: dtype {x.dtype} not fp32/bf16")
+    if x.dtype not in dtypes:
+        raise ValueError(f"{what}: dtype {x.dtype} not one of {dtypes}")
     if idx.dtype not in idx_dtypes or idx.device != x.device:
         raise ValueError(f"{what}: indices must be "
                          f"{'/'.join(map(str, idx_dtypes))} on {x.device}")
@@ -110,12 +113,12 @@ def _slices(x: torch.Tensor, what: str):
 def element_gather(src: torch.Tensor, idx: torch.Tensor, axis: int
                    ) -> torch.Tensor:
     """torch.gather(src, src.dim() - 2 + axis, idx) for a 2-D (R, C) or
-    3-D (B, R, C) src, fp32 or bf16, whose last two dimensions are
+    3-D (B, R, C) src, fp32, bf16 or int32, whose last two dimensions are
     contiguous and whose batch dimension has any stride; idx int64 of the
     output's shape, the same batch, and src's extent on the other axis."""
     if src.device.type == "cpu":
         return element_gather_reference(src, idx, axis)
-    _check_device(src, idx, "element gather")
+    _check_device(src, idx, "element gather", dtypes=ELEMENT_DTYPES)
     if axis not in (0, 1) or src.dim() != idx.dim():
         raise ValueError(f"element gather: axis {axis}, src "
                          f"{tuple(src.shape)}, idx {tuple(idx.shape)}")

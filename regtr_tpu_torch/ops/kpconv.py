@@ -436,3 +436,114 @@ def max_pool(x, index: GatherIndex, compute_dtype=None):
     _, nq, k = index.inds.shape
     gathered = batched_row_gather_padded(_pad_row(x, 0.0), index)
     return gathered.reshape(b, nq, k, c).amax(dim=2)
+
+
+class _MaxZero(torch.autograd.Function):
+    """max(x, 0) with the gradient of `jnp.maximum(x, 0.0)`: the cotangent
+    times 1 above 0, 0.5 at 0 and 0 below, as a product, so that an
+    infinite cotangent (sqrt's at 0) gives NaN below 0 and inf at 0, as in
+    JAX (torch.maximum's backward fills 0 below instead)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return x.clamp_min(0.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        ones = torch.ones_like(g)
+        return g * torch.where(x > 0, ones, torch.where(x == 0, 0.5 * ones,
+                                                        0.0 * ones))
+
+
+def kpconv_deformable(q_pts, s_pts, index: GatherIndex, x, kernel_pts,
+                      weights, offset_weights, offset_bias, kp_extent: float,
+                      influence: str = "linear", aggregation: str = "sum",
+                      modulated: bool = False, compute_dtype=None,
+                      norm: str = "valid"):
+    """Deformable (optionally modulated) KPConv -> (B, Nq, Cout).
+
+    A rigid KPConv over the same table (`kpconv_fused_gather` with
+    `offset_weights` (P, Cin, 3P [+P]) plus `offset_bias`) predicts each
+    query's kernel-point offsets, in units of the extent, and with
+    `modulated` a gain 2 * sigmoid(.) per kernel point; the convolution
+    then measures its neighbors against the deformed kernel points.  The
+    neighbors' coordinates come by `batched_row_gather` and carry no
+    gradient; the offsets' gradient flows through the deformed points'
+    dot products and squared norms, with JAX's gradients of max and sqrt
+    at 0 (`_MaxZero`).  The features come by `batched_row_gather_padded`.
+    """
+    b, ns, _ = s_pts.shape
+    neighb_inds = index.inds
+    _, nq, k = neighb_inds.shape
+    p = kernel_pts.shape[0]
+
+    off, _, _ = kpconv_fused_gather(
+        q_pts, s_pts, index, x, None, kernel_pts, offset_weights, kp_extent,
+        influence, aggregation, compute_dtype=compute_dtype, norm=norm)
+    off = off + offset_bias
+    offsets = off[..., :3 * p].reshape(b, nq, p, 3).float() * kp_extent
+    modulations = 2.0 * torch.sigmoid(off[..., 3 * p:]) if modulated else None
+    deformed_kp = kernel_pts.float() + offsets                # (B,Nq,P,3)
+
+    neighbors = batched_row_gather(
+        _pad_row(s_pts.to(torch.float32), SHADOW_COORD), index
+    ).reshape(b, nq, k, 3)
+    rel = (neighbors - q_pts.to(torch.float32)[:, :, None, :]).detach()
+    if compute_dtype is not None:
+        rel = rel.to(compute_dtype)
+        deformed_kp = deformed_kp.to(compute_dtype)
+    rel_sq = (rel * rel).sum(dim=-1)                           # (B,Nq,K)
+    dots = rel @ deformed_kp.transpose(-1, -2)                 # (B,Nq,K,P)
+    kp_sq = (deformed_kp * deformed_kp).sum(dim=-1)            # (B,Nq,P)
+    sq_d = _MaxZero.apply(rel_sq[..., None] - 2.0 * dots
+                          + kp_sq[:, :, None, :])
+    if influence == "linear":
+        infl = _MaxZero.apply(1.0 - torch.sqrt(sq_d) / kp_extent)
+    elif influence == "gaussian":
+        sigma = kp_extent * 0.3
+        infl = torch.exp(-sq_d / (2.0 * sigma * sigma + 1e-9))
+    elif influence == "constant":
+        infl = torch.ones_like(sq_d)
+    else:
+        raise ValueError(f"unknown influence {influence}")
+    if aggregation == "closest":
+        infl = infl * F.one_hot(sq_d.argmin(dim=-1), p).to(infl.dtype)
+    elif aggregation != "sum":
+        raise ValueError(f"unknown aggregation {aggregation}")
+
+    inv_n = 1.0 / (neighb_inds < ns).sum(dim=-1).clamp_min(1).to(
+        torch.float32)
+    cin = x.shape[-1]
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+    neighb_x = batched_row_gather_padded(_pad_row(x, 0.0), index).reshape(
+        b, nq, k, cin)
+    if norm == "legacy":
+        n = (neighb_x.to(torch.float32).sum(dim=-1) > 0.0).sum(dim=-1)
+        inv_n = 1.0 / n.clamp_min(1).to(torch.float32)
+    elif norm != "valid":
+        raise ValueError(f"unknown kpconv norm {norm}")
+    if compute_dtype is not None:
+        infl = infl.to(compute_dtype)
+        weights = weights.to(compute_dtype)
+    weighted = torch.einsum("bqkp,bqkc->bqpc", infl.float(), neighb_x.float())
+    if modulations is not None:
+        weighted = weighted * modulations[..., None]
+    out = weighted.reshape(b, nq, p * cin) @ weights.float().reshape(p * cin,
+                                                                     -1)
+    return out * inv_n[..., None]
+
+
+def closest_pool(x, inds):
+    """Features of each query's first (nearest) neighbor: x (B, Ns, C),
+    inds (B, Nq, K) with shadow = Ns (a zero row) -> (B, Nq, C)."""
+    index = GatherIndex(inds[:, :, 0], x.shape[1] + 1)
+    return batched_row_gather_padded(_pad_row(x, 0.0), index)
+
+
+def global_average(x, mask):
+    """Masked mean over the points: (B, N, C), (B, N) -> (B, C)."""
+    m = mask[..., None].to(x.dtype)
+    return (x * m).sum(dim=1) / m.sum(dim=1).clamp_min(1.0)

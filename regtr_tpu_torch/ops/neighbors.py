@@ -1,19 +1,37 @@
-"""Fixed-K radius neighbor search (counterpart of `brute_radius_neighbors`
-in regtr_tpu/ops/neighbors.py), batched over a leading cloud axis.
+"""Fixed-K radius neighbor searches (counterparts of regtr_tpu/ops/
+neighbors.py), batched over a leading cloud axis.
 
 Contract: an (B, Nq, K) index table into the support cloud; entries equal
 to Ns are "shadow" neighbors pointing at an appended pad row; only supports
 within the radius are returned, nearest first.
 
-The JAX version selects with `jax.lax.approx_min_k` on bf16-rounded
-distances.  That has no counterpart here: this version takes an exact
-`torch.topk` over the same bf16-rounded distances, which is what the JAX CPU
-fallback computes.  Ties in bf16 at the K-th slot may resolve to a different
-(equally near) point than in JAX.
+Three searches, as in the JAX package (`neighbor_method`):
+  * 'brute' (the default): distance matrices by matrix expansion.  The JAX
+    version selects with `jax.lax.approx_min_k` on bf16-rounded
+    distances; that has no counterpart here, so this one takes an exact
+    `torch.topk` over the same bf16-rounded distances, which is what the
+    JAX CPU fallback computes.  Ties in bf16 at the K-th slot may resolve
+    to a different (equally near) point than in JAX.
+  * 'scan': the streaming exact merge over support chunks, on fp32
+    distances.
+  * 'grid': candidates from the 27 cells of edge `radius` around each
+    query, from per-cloud cell tables (sort and scatter).
+'scan' and 'grid' select the K nearest with `jax.lax.top_k`'s order: by
+distance, ties lowest candidate position first.  Here that is a stable
+sort of the fp32 distances, and the selected candidates' ids are taken by
+the element gather (ops/gather.py `element_gather`, the K5b kernel on CUDA
+tensors, which moves the int32 ids' bits).
 """
 from __future__ import annotations
 
 import torch
+
+from .gather import element_gather, row_gather
+
+_INF = 3.0e38
+_BITS = 10
+_MAXC = (1 << _BITS) - 1
+_KEY_SENTINEL = 2 ** 31 - 1
 
 
 def brute_radius_neighbors(queries: torch.Tensor, q_mask: torch.Tensor,
@@ -59,3 +77,152 @@ def brute_radius_neighbors(queries: torch.Tensor, q_mask: torch.Tensor,
         out[:, q0:q0 + query_chunk, :k_eff] = sel
     out[..., k_eff:] = ns
     return out
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _nearest(d: torch.Tensor, ids: torch.Tensor, k: int):
+    """The k smallest of d (..., C) fp32, ties lowest position first (as
+    jax.lax.top_k of -d), and the int32 ids at their positions ->
+    (distances, ids) (..., k)."""
+    vals, pos = torch.sort(d, dim=-1, stable=True)
+    return vals[..., :k], element_gather(ids, pos[..., :k].contiguous(), 1)
+
+
+def _radius_sq(radius: float, device) -> torch.Tensor:
+    """The fp32 square of the fp32 radius, as the JAX searches compute it
+    from their traced radius."""
+    r = torch.tensor(radius, dtype=torch.float32, device=device)
+    return r * r
+
+
+def scan_radius_neighbors(queries: torch.Tensor, q_mask: torch.Tensor,
+                          supports: torch.Tensor, s_mask: torch.Tensor,
+                          radius: float, k: int, chunk: int = 1024
+                          ) -> torch.Tensor:
+    """K-nearest-within-radius table by a streaming merge over support
+    chunks (`radius_neighbors` of the JAX package, its oracle path).
+
+    queries (B, Nq, 3), q_mask (B, Nq), supports (B, Ns, 3), s_mask (B, Ns)
+    -> (B, Nq, k) int64, shadow entries = Ns.  Each chunk's fp32 distances
+    are merged into the running k best by `_nearest`.
+    """
+    b, nq, _ = queries.shape
+    ns = supports.shape[1]
+    dev = queries.device
+    chunk = min(chunk, _round_up(ns, 8))
+    pad = _round_up(ns, chunk) - ns
+    supports_p = torch.cat([supports, supports.new_zeros(b, pad, 3)], dim=1)
+    s_mask_p = torch.cat([s_mask, s_mask.new_zeros(b, pad)], dim=1)
+    q_sq = (queries * queries).sum(dim=-1, keepdim=True)     # (B, Nq, 1)
+    best_d = torch.full((b, nq, k), _INF, dtype=torch.float32, device=dev)
+    best_i = torch.full((b, nq, k), ns, dtype=torch.int32, device=dev)
+    for base in range(0, ns + pad, chunk):
+        s_pts = supports_p[:, base:base + chunk]
+        d = (q_sq - 2.0 * (queries @ s_pts.transpose(1, 2))
+             + (s_pts * s_pts).sum(dim=-1)[:, None, :]).clamp_min(0.0)
+        d = torch.where(s_mask_p[:, None, base:base + chunk], d, _INF)
+        cand_i = torch.arange(base, base + chunk, dtype=torch.int32,
+                              device=dev).expand(b, nq, chunk)
+        best_d, best_i = _nearest(torch.cat([best_d, d], dim=-1),
+                                  torch.cat([best_i, cand_i], dim=-1), k)
+    in_range = (best_d <= _radius_sq(radius, dev)) & q_mask[..., None]
+    return torch.where(in_range, best_i, ns).long()
+
+
+def _pack_cells(ijk: torch.Tensor) -> torch.Tensor:
+    """(..., 3) int32 cell coordinates in [0, 1023] -> int32 key."""
+    return ijk[..., 0] | (ijk[..., 1] << _BITS) | (ijk[..., 2] << (2 * _BITS))
+
+
+_CELL_OFFSETS = [(i, j, l) for i in (-1, 0, 1) for j in (-1, 0, 1)
+                 for l in (-1, 0, 1)]
+
+
+def _grid_one(queries, q_mask, supports, s_mask, cell, r_sq, k, cell_cap):
+    """One cloud of `grid_radius_neighbors`: (Nq, 3), (Nq,), (Ns, 3), (Ns,)
+    -> (Nq, k) int32."""
+    nq, ns = queries.shape[0], supports.shape[0]
+    dev = queries.device
+    masked_s = torch.where(s_mask[:, None], supports, 1e9)
+    # a margin of one cell keeps the query cells at the boundary in range
+    origin = torch.floor(masked_s.amin(dim=0) / cell) - 1.0
+    ijk_s = (torch.floor(supports / cell) - origin).to(torch.int32).clamp(
+        0, _MAXC)
+    key_s = torch.where(s_mask, _pack_cells(ijk_s), _KEY_SENTINEL)
+
+    order = torch.argsort(key_s, stable=True)
+    key_sorted = key_s[order]
+    valid_sorted = key_sorted != _KEY_SENTINEL
+    new_run = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                         key_sorted[1:] != key_sorted[:-1]]) & valid_sorted
+    cell_id = torch.cumsum(new_run.int(), 0) - 1              # (Ns,)
+    arange = torch.arange(ns, device=dev)
+    first_of_run = torch.cummax(torch.where(new_run, arange, -1), 0).values
+    rank = arange - first_of_run
+    # the sorted cell keys (sentinel-padded) and each cell's members, the
+    # first cell_cap in sorted order: an overflowing cell drops its highest
+    # sorted indices
+    uniq_keys = torch.full((ns,), _KEY_SENTINEL, dtype=torch.int32,
+                           device=dev)
+    uniq_keys[cell_id[new_run]] = key_sorted[new_run]
+    table = torch.full((ns, cell_cap), ns, dtype=torch.int32, device=dev)
+    kept = valid_sorted & (rank < cell_cap)
+    table[cell_id[kept], rank[kept]] = order[kept].int()
+
+    ijk_q = (torch.floor(queries / cell) - origin).to(torch.int32).clamp(
+        0, _MAXC)
+    offs = torch.tensor(_CELL_OFFSETS, dtype=torch.int32, device=dev)
+    cand_cells = ijk_q[:, None, :] + offs                     # (Nq, 27, 3)
+    in_range = ((cand_cells >= 0) & (cand_cells <= _MAXC)).all(dim=-1)
+    cand_keys = _pack_cells(cand_cells.clamp(0, _MAXC)).reshape(-1)
+    rows = torch.searchsorted(uniq_keys, cand_keys).clamp(0, ns - 1)
+    found = (uniq_keys[rows] == cand_keys) & in_range.reshape(-1)
+    cand = torch.where(found[:, None], table[rows], ns).reshape(
+        nq, 27 * cell_cap)
+
+    s_pad = torch.cat([supports.float(), supports.new_full((1, 3), 1e6)])
+    cand_pts = row_gather(s_pad.contiguous(), cand.reshape(-1)).reshape(
+        nq, 27 * cell_cap, 3)
+    d = ((cand_pts - queries[:, None, :]) ** 2).sum(dim=-1)
+    ok = (cand < ns) & (d <= r_sq) & q_mask[:, None]
+    vals, idx = _nearest(torch.where(ok, d, _INF), cand, k)
+    return torch.where(vals <= r_sq, idx, ns)
+
+
+def grid_radius_neighbors(queries: torch.Tensor, q_mask: torch.Tensor,
+                          supports: torch.Tensor, s_mask: torch.Tensor,
+                          radius: float, k: int, cell_cap: int = 32
+                          ) -> torch.Tensor:
+    """K-nearest-within-radius table from grid cells of edge `radius`
+    (`grid_radius_neighbors` of the JAX package): each cloud's supports are
+    sorted into cells, each query takes the members of the 27 cells around
+    its own (at most `cell_cap` per cell) as candidates and keeps the k
+    nearest within the radius.  Shapes as `scan_radius_neighbors`."""
+    if supports.shape[1] == 0:
+        raise ValueError("grid search over an empty support cloud")
+    dev = queries.device
+    cell = torch.tensor(radius, dtype=torch.float32, device=dev)
+    r_sq = _radius_sq(radius, dev)
+    out = [_grid_one(queries[i], q_mask[i], supports[i], s_mask[i], cell,
+                     r_sq, k, cell_cap) for i in range(queries.shape[0])]
+    return torch.stack(out).long()
+
+
+def radius_neighbors_batch(queries, q_mask, supports, s_mask, radius: float,
+                           k: int, method: str = "brute", chunk: int = 1024,
+                           cell_cap: int = 32) -> torch.Tensor:
+    """The search `method` names ('brute', 'scan' or 'grid'), as the JAX
+    package's `radius_neighbors_batch` dispatches it."""
+    if method == "brute":
+        return brute_radius_neighbors(queries, q_mask, supports, s_mask,
+                                      radius, k)
+    if method == "grid":
+        return grid_radius_neighbors(queries, q_mask, supports, s_mask,
+                                     radius, k, cell_cap)
+    if method == "scan":
+        return scan_radius_neighbors(queries, q_mask, supports, s_mask,
+                                     radius, k, chunk)
+    raise ValueError(f"unknown neighbor method {method!r}")

@@ -13,7 +13,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
-from .neighbors import brute_radius_neighbors
+from .neighbors import radius_neighbors_batch
 from .subsample import grid_subsample, voxel_keys
 
 
@@ -97,13 +97,20 @@ def spatial_sort(points: torch.Tensor, mask: torch.Tensor, voxel_size: float):
 
 
 def build_pyramid(points: torch.Tensor, mask: torch.Tensor,
-                  spec: PyramidSpec, sort_input: bool = True
-                  ) -> List[PyramidLevel]:
+                  spec: PyramidSpec, sort_input: bool = True,
+                  method: str = "brute", chunk: int = 1024,
+                  cell_cap: int = 32) -> List[PyramidLevel]:
     """Full multi-level pyramid.  points (B, N0, 3), mask (B, N0).
 
     With sort_input, level 0 is spatially sorted first and the permutation
-    is kept on level 0 as `perm`.
+    is kept on level 0 as `perm`.  `method` names the neighbor search
+    (ops/neighbors.py `radius_neighbors_batch`; `chunk` is the 'scan'
+    search's support chunk, `cell_cap` the 'grid' search's cell capacity).
     """
+    def search(q, qm, s, sm, r, k):
+        return radius_neighbors_batch(q, qm, s, sm, r, k, method=method,
+                                      chunk=chunk, cell_cap=cell_cap)
+
     perm = None
     if sort_input:
         points, mask, perm = spatial_sort(points, mask, spec.voxel_sizes[0])
@@ -113,18 +120,16 @@ def build_pyramid(points: torch.Tensor, mask: torch.Tensor,
         r, k = spec.radii[li], spec.neighbor_ks[li]
         level = PyramidLevel(
             points=cur_pts, mask=cur_mask,
-            neighbors=brute_radius_neighbors(cur_pts, cur_mask, cur_pts,
-                                             cur_mask, r, k),
+            neighbors=search(cur_pts, cur_mask, cur_pts, cur_mask, r, k),
             perm=perm if li == 0 else None,
         )
         if li + 1 < spec.num_levels:
             nxt_pts, nxt_mask, _ = grid_subsample(
                 cur_pts, cur_mask, spec.voxel_sizes[li + 1],
                 spec.capacities[li + 1])
-            level.pools = brute_radius_neighbors(
-                nxt_pts, nxt_mask, cur_pts, cur_mask, r, k)
-            level.upsamples = brute_radius_neighbors(
-                cur_pts, cur_mask, nxt_pts, nxt_mask, 2.0 * r, k)
+            level.pools = search(nxt_pts, nxt_mask, cur_pts, cur_mask, r, k)
+            level.upsamples = search(cur_pts, cur_mask, nxt_pts, nxt_mask,
+                                     2.0 * r, k)
             cur_pts, cur_mask = nxt_pts, nxt_mask
         levels.append(level)
     return levels

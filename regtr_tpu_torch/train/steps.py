@@ -50,10 +50,12 @@ def registration_metrics(pose_pred, pose_gt, cfg, per_pair: bool = False
     return out
 
 
-def forward_loss(model, batch):
-    """-> (losses incl. 'total', outputs), recorded for the backward."""
+def forward_loss(model, batch, deterministic: bool = False):
+    """-> (losses incl. 'total', outputs), recorded for the backward.  Not
+    deterministic by default, as the JAX step calls compute_loss: with
+    `dropout` > 0 that raises, for want of a dropout generator."""
     return model.compute_loss(batch["points"], batch["mask"], batch["pose"],
-                              batch["overlap0"])
+                              batch["overlap0"], deterministic=deterministic)
 
 
 def backward(optimizer: Optimizer, total: torch.Tensor):
@@ -80,7 +82,16 @@ def apply(optimizer: Optimizer, grads: List[torch.Tensor],
 
 def make_train_step(model, optimizer: Optimizer, cfg):
     """-> step(batch) -> metrics: the losses, the registration metrics,
-    'grad_norm' (before clipping) and 'update_skipped' (0. or 1.)."""
+    'grad_norm' (before clipping) and 'update_skipped' (0. or 1.).
+
+    With `grad_accum_steps` > 1 a step is a micro-step (train/optim.py).
+    `dropout` > 0 raises: the JAX training step calls compute_loss with no
+    dropout rng, which flax refuses, so neither package trains with
+    dropout (compute_loss with a generator does run it)."""
+    if float(cfg.get("dropout", 0.0)) > 0.0:
+        raise ValueError("dropout > 0: the training step passes no dropout "
+                         "generator to compute_loss (the JAX package's step "
+                         "passes no dropout rng and raises likewise)")
 
     def step(batch):
         losses, out = forward_loss(model, batch)
@@ -101,7 +112,7 @@ def make_eval_step(model, cfg):
 
     @torch.no_grad()
     def step(batch):
-        losses, out = forward_loss(model, batch)
+        losses, out = forward_loss(model, batch, deterministic=True)
         metrics = dict(losses)
         metrics.update(registration_metrics(out["pose"], batch["pose"], cfg,
                                             per_pair=True))

@@ -10,9 +10,13 @@ and the optimizer (best by validation score).  As in the JAX package:
     the step itself syncs once, for its skip of a non-finite update;
   * a step that raises before its update is logged and skipped, up to 5 in
     a row.  A failure inside the update (the optimizer is then `torn`),
-    after it (the optimizer's count has moved: skipping would apply a
-    second update for the same step), or one that leaves the CUDA context
-    unusable, re-raises at once: the run resumes from its last checkpoint.
+    after it (the optimizer's count or micro-step has moved: skipping
+    would apply a second update for the same step), or one that leaves the
+    CUDA context unusable, re-raises at once: the run resumes from its
+    last checkpoint;
+  * with `grad_accum_steps` k > 1 each step is a micro-step and the
+    parameters move every k-th (train/optim.py), as under optax's
+    MultiSteps; `dropout` > 0 raises, as the JAX trainer's step does.
 
 One process: the JAX trainer's mesh and its cross-host validation reduction
 wait for the multi-GPU port (ROADMAP.md Queue A, item 6).  There is no
@@ -153,7 +157,7 @@ class Trainer:
             train_loader.set_epoch(epoch)
             for batch, _meta in self._waited(train_loader):
                 t_step = time.perf_counter()
-                count = optimizer.count
+                position = optimizer.position
                 try:
                     metrics = train_step(batch_to_device(batch, device))
                 except Exception:
@@ -162,7 +166,7 @@ class Trainer:
                     self.logger.exception(
                         "Train step %d failed (%d consecutive)", step + 1,
                         consecutive_failures)
-                    if (optimizer.torn or optimizer.count != count
+                    if (optimizer.torn or optimizer.position != position
                             or not _device_usable(device)):
                         self.logger.error(
                             "The failure hit the update, came after it or "

@@ -136,3 +136,25 @@ def load_kernel_points(radius: float, num_points: int, dim: int = 3,
     else:
         raise ValueError(f"unknown kernel point method {method}")
     return disp * np.float32(radius)
+
+
+@lru_cache(maxsize=4)
+def _load_disposition_npz(path: str):
+    """Per-block kernel dispositions exported from a reference (PyTorch)
+    checkpoint (keys like 'kpf_encoder.encoder_blocks.3.KPConv.
+    kernel_points'), stored already scaled by each block's radius."""
+    with np.load(path) as data:
+        return {k: np.asarray(data[k], np.float32) for k in data.files}
+
+
+def lookup_block_dispositions(path: str, block_index: int):
+    """The disposition of encoder block `block_index` in an exported npz,
+    or None if the file has no entry for it (config key
+    `kernel_dispositions_file`: bit-exact converted checkpoints, since the
+    reference draws each block's disposition at random and stores it in
+    the checkpoint)."""
+    table = _load_disposition_npz(str(path))
+    for key, val in table.items():
+        if f"encoder_blocks.{block_index}.KPConv.kernel_points" in key:
+            return val
+    return None

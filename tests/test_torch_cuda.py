@@ -371,9 +371,10 @@ def test_element_gather_kernel_is_torch_gather(cuda, axis, dtype):
 @pytest.mark.parametrize("cols", [20000, 130000])
 def test_element_gather_kernel_wide_rows(cuda, cols, dtype):
     """Axis-1 rows wider than 48 KB take shared memory past the default
-    (20000 fp32: 80 KB); rows wider than a block's shared memory (130000:
-    260 or 520 KB) gather from device memory.  Bitwise torch.gather, with
-    a batch stride larger than the slice and operands off 16 bytes."""
+    (20000 fp32: 80 KB; 2999 outputs a row, enough to stage the row);
+    rows wider than a block's shared memory (130000: 260 or 520 KB) gather
+    from device memory.  Bitwise torch.gather, with a batch stride larger
+    than the slice and operands off 16 bytes."""
     from regtr_tpu_torch.ops.gather import (element_gather,
                                             element_gather_reference)
 
@@ -381,8 +382,8 @@ def test_element_gather_kernel_wide_rows(cuda, cols, dtype):
     tdt = getattr(torch, dtype)
     flat = torch.randn(3 * 5 * cols + 1, generator=g).to(cuda, tdt)
     src = flat[1:].view(3, 5, cols)[:, :4]            # batch stride 5 rows
-    idx = torch.randint(0, cols, (3 * 4 * 999 + 1,), generator=g).to(cuda)
-    idx = idx[1:].view(3, 4, 999)
+    idx = torch.randint(0, cols, (3 * 4 * 2999 + 1,), generator=g).to(cuda)
+    idx = idx[1:].view(3, 4, 2999)
     before = element_gather.launches
     got = element_gather(src, idx, 1)
     torch.cuda.synchronize()
@@ -443,3 +444,146 @@ def test_batched_row_gather_backward_long_segments(cuda):
     assert torch.equal(dxs[1], dxs[2])
     torch.testing.assert_close(dxs[1], dxs[0], rtol=1e-5,
                                atol=1e-5 * float(dxs[0].abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", [0, 1])
+def test_element_gather_moves_int32_bits(cuda, axis):
+    """K5b on int32 ids whose float view is NaN (quiet and signalling
+    payloads), infinite, subnormal or negative zero: bitwise torch.gather,
+    2-D and batched, rows staged in shared memory and rows read from
+    device memory, so the kernel moves 4-byte words and does no float
+    arithmetic on them."""
+    from regtr_tpu_torch.ops.gather import (element_gather,
+                                            element_gather_reference)
+
+    special = torch.tensor([0x7FC00001, -0x3ED0000, 0x7F800001, 0x7F800000,
+                            -0x800000, 1, 0x007FFFFF, -0x80000000, 0,
+                            0x7FFFFFFF], dtype=torch.int32)
+    g = torch.Generator().manual_seed(axis)
+    src = special[torch.randint(0, len(special), (3, 97, 41), generator=g)]
+    src = src.to(cuda)
+    assert torch.isnan(src.view(torch.float32)).any()
+    n = src.shape[1 + axis]
+    shape = (3, 150, 41) if axis == 0 else (3, 97, 60)
+    idx = torch.randint(0, n, shape, generator=g).to(cuda)
+    # a search's merge: 32 of 1056 candidates a row, gathered from device
+    # memory without staging the row
+    merge = special[torch.randint(0, len(special), (2, 50, 1056),
+                                  generator=g)].to(cuda)
+    pick = torch.randint(0, 1056, (2, 50, 32), generator=g).to(cuda)
+    before = element_gather.launches
+    got = element_gather(src, idx, axis)
+    got2d = element_gather(src[1], idx[1].contiguous(), axis)
+    got_merge = element_gather(merge, pick, 1)
+    torch.cuda.synchronize()
+    assert element_gather.launches == before + 3
+    assert got.dtype == torch.int32
+    assert torch.equal(got, element_gather_reference(src, idx, axis))
+    assert torch.equal(got2d, element_gather_reference(src[1], idx[1], axis))
+    assert torch.equal(got_merge, element_gather_reference(merge, pick, 1))
+
+
+def _plane_clouds(b, n, seed):
+    """Meter-scale floor and wall points, jittered off a 3 cm grid."""
+    g = torch.Generator().manual_seed(seed)
+    side = int((n / 2) ** 0.5) + 1
+    u, v = torch.meshgrid(torch.arange(side), torch.arange(side),
+                          indexing="ij")
+    u, v = u.reshape(-1) * 0.03, v.reshape(-1) * 0.03
+    z = torch.zeros_like(u)
+    base = torch.cat([torch.stack([u, v, z], 1), torch.stack([u, z, v], 1)])
+    pts = torch.stack([base[torch.randperm(len(base), generator=g)[:n]]
+                       for _ in range(b)])
+    pts = pts + torch.randn(pts.shape, generator=g) * 0.003
+    mask = torch.ones(b, n, dtype=torch.bool)
+    mask[1, n * 3 // 4:] = False
+    return pts.float(), mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["scan", "grid"])
+def test_scan_and_grid_on_the_card(cuda, method):
+    """The 'scan' and 'grid' searches on the card take their candidates'
+    ids by K5b (launched once per chunk, once per cloud) and give the CPU's
+    tables: 'grid' bitwise (elementwise distances), 'scan' slot by slot
+    except at fp32 ties of the distance expansion (a few roundings of
+    |q|^2 + |s|^2)."""
+    from regtr_tpu_torch.ops import neighbors
+    from regtr_tpu_torch.ops.gather import element_gather
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pts, mask = _plane_clouds(2, 3000, 3)
+    args = (pts, mask, pts, mask, 0.0625, 12)
+    before = element_gather.launches
+    got = neighbors.radius_neighbors_batch(
+        *(a.to(cuda) for a in args[:4]), *args[4:], method=method,
+        chunk=512).cpu()
+    launches = element_gather.launches - before
+    ref = neighbors.radius_neighbors_batch(*args, method=method, chunk=512)
+    assert launches == (2 if method == "grid" else 3000 // 512 + 1)
+    assert ((ref < 3000).sum(-1) == 12).sum() > 100     # full rows: ties
+    if method == "grid":
+        assert torch.equal(got, ref)
+        return
+    for b, i in zip(*torch.nonzero((got != ref).any(-1), as_tuple=True)):
+        q = pts[b, i].double()
+        slack = 4 * 2.0 ** -24 * (float((q * q).sum())
+                                  + float((pts[b].double() ** 2).sum(-1)
+                                          .max()))
+        d = {int(j): float(((pts[b, j].double() - q) ** 2).sum())
+             for j in torch.cat([got[b, i], ref[b, i]]) if j < 3000}
+        kth = max(d.values())
+        for j in set(got[b, i].tolist()) ^ set(ref[b, i].tolist()):
+            assert (kth - d[j] <= slack
+                    or abs(d[j] - 0.0625 ** 2) <= slack), (b, i, j)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("modulated", [False, True])
+def test_deformable_block_on_the_card(cuda, modulated):
+    """A strided deformable bottleneck block (fp32), forward and backward
+    on the card (K5a gathers, K4 gather transposes) against the same block
+    on the CPU (plain versions), same parameters and tables."""
+    from regtr_tpu_torch.config import threedmatch_config
+    from regtr_tpu_torch.models import init_parameters
+    from regtr_tpu_torch.nn.blocks import ResnetBottleneckBlock
+    from regtr_tpu_torch.ops import gather, kpconv
+    from regtr_tpu_torch.ops.pyramid import build_pyramid, make_pyramid_spec
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = threedmatch_config(modulated=modulated)
+    pts, mask = _plane_clouds(2, 2000, 4)
+    levels = build_pyramid(pts, mask, make_pyramid_spec(cfg, 2000))
+    block = ResnetBottleneckBlock("resnetb_deformable_strided", 64, 128,
+                                  0.0625, 0, cfg)
+    init_parameters(block, torch.Generator().manual_seed(0))
+    with torch.no_grad():       # offsets of a fraction of the extent
+        block.kpconv.offset_weights.mul_(0.2)
+    g = torch.Generator().manual_seed(1)
+    x = torch.rand(2, 2000, 64, generator=g)
+    cot = torch.randn(2, levels[1].points.shape[1], 128, generator=g)
+    results = []
+    for dev in ("cpu", cuda):
+        blk = block.to(dev)
+        lv = [kpconv_level.__class__(**{
+            k: None if v is None else v.to(dev)
+            for k, v in vars(kpconv_level).items()})
+            for kpconv_level in levels]
+        xd = x.to(dev).requires_grad_()
+        before = (gather.row_gather.launches, kpconv.segment_sum.launches)
+        out = blk(xd, lv, {})
+        grads = torch.autograd.grad(out, [xd, *blk.parameters()],
+                                    cot.to(dev))
+        used = (gather.row_gather.launches - before[0],
+                kpconv.segment_sum.launches - before[1])
+        results.append((out.detach().cpu(), [t.cpu() for t in grads], used))
+    (out_c, g_c, used_c), (out_g, g_g, used_g) = results
+    # offset conv: features + coordinates; the conv: coordinates, features;
+    # the shortcut's max pool: features.  Backward: a sum per feature gather
+    assert used_c == (0, 0) and used_g == (5, 3)
+    torch.testing.assert_close(out_g, out_c, rtol=1e-4,
+                               atol=1e-4 * float(out_c.abs().max()))
+    for a, b in zip(g_g, g_c):
+        assert torch.isfinite(a).all()
+        assert float((a - b).norm()) <= 1e-4 * float(b.norm()) + 1e-12
