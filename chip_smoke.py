@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's inference path, training step, trainer, test
-protocols and other command lines on one CUDA card.
+protocols, other command lines and data parallelism on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -108,7 +108,24 @@ non-zero without one, and without the checkout beside it).  Phases:
    with another; (d) one pair's pyramid by the 'scan' and 'grid'
    searches: each K5b launch bitwise torch.gather, the tables the brute
    search's by tests/test_torch_pyramid.py's rule, K5b timed at the
-   scan's merge shape.
+   scan's merge shape;
+12. data parallelism (regtr_tpu_torch/parallel/dist.py) under `python -m
+   torch.distributed.run --standalone`, and remat: (a) the trainer on
+   phase 8's first run, one rank per card over NCCL (world size 1 on one
+   card, where no process group is made): its losses and its checkpoint
+   bitwise phase 8's, its median step and peak memory beside phase 8's;
+   (b) two ranks sharing the card over Gloo (`--device cuda:0`): the
+   trainer (the ranks' parameters bitwise equal, one run directory with
+   log.rank1.txt, rank 0's checkpoints and best.json, phase 8's launches
+   per step on both ranks), `python -m regtr_tpu_torch.test` on phase 7's
+   parameters and root (the merged est.log holds phase 7's pairs, each
+   pose bitwise) and phase 6's first step with one pair per rank (the
+   sum-reduced gradients within TOL_GRAD of phase 6's one-process step,
+   the all-reduce timed); (c) one step with remat off and on at the full
+   width of conf/modelnet.yaml and of conf/3dmatch.yaml at bucket 24576:
+   the gradients bitwise, the peak memory of each, each kernel launch of
+   the remat step held to its plain version.  The ranks run this file as
+   `chip_smoke.py --rank-worker KIND OUT ARGS` (`rank_worker`).
 
 It imports torch, numpy, scipy and regtr_tpu_torch, nothing of JAX.
 
@@ -1558,6 +1575,11 @@ def phase_training():
           f"{len(errs)} parameters: worst rel L2 {errs[0][0]:.2e} "
           f"({errs[0][1]}; tol {TOL_GRAD})")
     segsum["segsum"]["first_step_grad_rel_l2"] = errs[0][0]
+    # phase 12 holds the data-parallel first step to this one
+    PHASE12.mkdir(parents=True, exist_ok=True)
+    np.savez(PHASE12 / "first_step.npz", **batch_np)
+    torch.save([g.cpu() for g in grads["kernels"]],
+               PHASE12 / "first_step_grads.pt")
     del grads
 
     # -- warm-up, then the timed window with the counts zeroed just before
@@ -2270,13 +2292,19 @@ def phase_trainer(trainer_shape):
     smi = card_line()
     try:
         _zero_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         with recorded_train_steps(record, latest):
             run1 = train_cli.main(["--config", str(cfg_first), "--logdir",
                                    str(work / "first"), *flags])
         torch.cuda.synchronize()
         wall1 = time.perf_counter() - t0
+        peak1 = torch.cuda.max_memory_allocated()
         (logdir,) = (work / "first").iterdir()
+        # phase 12 runs the same training under the launcher
+        PHASE12.mkdir(parents=True, exist_ok=True)
+        shutil.copy(logdir / "ckpt" / str(first) / "state.pt",
+                    PHASE12 / "phase8_state.pt")
         saver = CheckpointManager(logdir / "ckpt")
         check(saver.all_steps() == [4, first]
               and saver.best_record() is not None,
@@ -2371,8 +2399,15 @@ def phase_trainer(trainer_shape):
                 if any(k in name for k in K4_KERNELS)) / 1e3 / PROFILED_ITERS
     log(f"gather transpose (K4) in the trainer step's profile: {k4_ms:.3f} "
         "ms per step")
+    first_run = dict(
+        totals=[float(t) for t, _, _ in record[:first]],
+        median_step_ms=statistics.median(run1.timing["step_s"][1:]) * 1e3,
+        peak_bytes=peak1)
+    log(f"trainer's first run ({first} steps): median step "
+        f"{first_run['median_step_ms']:.1f} ms after its first, peak memory "
+        f"{peak1 / 2**30:.2f} GiB ({smi})")
     return dict(launches=launches, per_step=per_step, steps=len(steps_s),
-                median_step_ms=median * 1e3,
+                first_run=first_run, median_step_ms=median * 1e3,
                 step_alone_ms=statistics.median(alone) * 1e3,
                 loader_wait_share=loop["loader_wait_s"] / busy,
                 validation_s=loop["validation_s"], **held)
@@ -3174,6 +3209,487 @@ def phase_options():
     return result
 
 
+# Phase 12: data parallelism (regtr_tpu_torch/parallel/dist.py) through
+# python -m torch.distributed.run, and rematerialization at full width.
+# Its work files live in PHASE12; phases 6 and 8 leave their references
+# there.
+PHASE12 = ROOT / ".build" / "phase12"
+DP_TRAINER_STEPS = 4        # (b): the two ranks' run, validation every 2
+DP_TIMEOUT_S = 600          # a launch of the ranks, killed whole after it
+ALLREDUCE_REPS = 5
+REMAT_3DMATCH_BUCKET = 24576
+
+
+def launch_ranks(nproc, args, what, cwd=ROOT):
+    """python -m torch.distributed.run --standalone --nproc_per_node nproc
+    args, in a session of its own, killed with every rank after
+    DP_TIMEOUT_S; fails unless every rank exits 0."""
+    import signal
+
+    t = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(nproc), *args], cwd=cwd,
+        env=dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="4"),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=DP_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+    log(f"{what}: exit {proc.returncode} in {time.perf_counter() - t:.1f} s "
+        f"(host clock, the ranks' start included)")
+    if proc.returncode != 0:
+        log(out[-6000:])
+    check(proc.returncode == 0, f"{what}: every rank exits 0")
+    return out
+
+
+def rank_worker(kind, out, *args):
+    """One rank of a phase 12 launch: `chip_smoke.py --rank-worker trainer
+    OUT ARGS` runs the trainer's command line main(ARGS) and saves this
+    rank's parameters, losses, launches per step, step times and peak
+    memory to OUT/rank{r}.pt; `--rank-worker first_step OUT` takes the
+    first step of phase 6's two-pair batch with one pair per rank over
+    Gloo on cuda:0, writes its loss, a digest of its reduced gradients and
+    the all-reduce's times to OUT/first_step_rank{r}.json and rank 0's
+    reduced gradients to OUT/first_step_dp_grads.pt.
+    """
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    from regtr_tpu_torch.parallel import dist
+
+    out, rank = Path(out), int(os.environ.get("RANK", "0"))
+    if kind == "trainer":
+        from regtr_tpu_torch.train import __main__ as train_cli
+
+        record, latest = [], {}
+        with recorded_train_steps(record, latest):
+            trainer = train_cli.main(list(args))
+        torch.cuda.synchronize()
+        torch.save({"params": [p.detach().cpu()
+                               for p in trainer.optimizer.params],
+                    "totals": [float(t) for t, _, _ in record],
+                    "skipped": [float(s) for _, s, _ in record],
+                    "launches": [n for _, _, n in record],
+                    "step_s": trainer.timing["step_s"],
+                    "peak_bytes": torch.cuda.max_memory_allocated()},
+                   out / f"rank{rank}.pt")
+        return
+    if kind != "first_step":
+        raise SystemExit(f"FAILED: unknown rank worker {kind!r}")
+    from regtr_tpu_torch.config import threedmatch_config
+    from regtr_tpu_torch.models import create_model
+    from regtr_tpu_torch.train import steps
+    from regtr_tpu_torch.train.optim import Optimizer
+
+    device = torch.device("cuda:0")
+    check(dist.init_distributed("gloo", device, timeout=DP_TIMEOUT_S)
+          and dist.world_size() == 2, "two ranks over Gloo")
+    try:
+        data = np.load(out / "first_step.npz")
+        cfg = threedmatch_config()
+        n0 = data["points"].shape[1]
+        model = create_model(cfg, n0, device, seed=0)
+        share = {k: (data[k][rank:rank + 1] if k == "pose"
+                     else data[k][2 * rank:2 * rank + 2])
+                 for k in steps.BATCH_KEYS}
+        batch = steps.batch_to_device(share, device)
+        opt = Optimizer(model.parameters(), cfg)
+        losses, _ = steps.forward_loss(model, batch)
+        grads, grad_norm = steps.backward(opt, losses["total"])
+        total = float(steps.global_losses(losses)["total"])
+        times = []
+        for _ in range(ALLREDUCE_REPS):
+            torch.cuda.synchronize()
+            dist.barrier()
+            t = time.perf_counter()
+            dist.all_reduce_sum_flat(grads)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        if rank == 0:
+            torch.save([g.cpu() for g in grads],
+                       out / "first_step_dp_grads.pt")
+        (out / f"first_step_rank{rank}.json").write_text(json.dumps({
+            "n0": n0, "total": total, "grad_norm": float(grad_norm),
+            "grad_bytes": 4 * sum(g.numel() for g in grads),
+            "allreduce_ms": [x * 1e3 for x in times],
+            "digest": float(sum(float(g.double().abs().sum())
+                                for g in grads))}))
+    finally:
+        dist.shutdown()
+
+
+def remat_steps(cfg, batch, what, runs=5):
+    """Forward and backward (no update) of a model made from seed 0 with
+    cfg's remat off and on, `runs` times each: the first run's gradients
+    bitwise equal, the peak memory and the median time of the runs after
+    the first of each; then one remat run with each kernel launch held to
+    its plain version."""
+    import torch
+
+    from regtr_tpu_torch.models import create_model
+    from regtr_tpu_torch.train import steps
+    from regtr_tpu_torch.train.optim import Optimizer
+
+    n0 = batch["points"].shape[1]
+    grads, stats, found = {}, {}, {}
+    for key, remat in (("off", False), ("on", True), ("held", True)):
+        model = create_model(dict(cfg, remat=remat), n0, DEVICE, seed=0)
+        opt = Optimizer(model.parameters(), cfg)
+        times = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(1 if key == "held" else runs):
+            before = _launch_counts()
+            with contextlib.ExitStack() as stack:
+                if key == "held":
+                    stack.enter_context(held_to_plain(found))
+                t = time.perf_counter()
+                losses, _ = steps.forward_loss(model, batch)
+                g, _ = steps.backward(opt, losses["total"])
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+            # held_to_plain folds kpconv's counts back on its exit
+            launches = {k: v - before[k] for k, v in
+                        _launch_counts().items()}
+            if i == 0:
+                grads[key] = g
+        stats[key] = dict(ms=statistics.median(times[1:] or times),
+                          peak=torch.cuda.max_memory_allocated(),
+                          launches=launches)
+        del model, opt, losses, g
+    check(all(torch.equal(a, b) for a, b in zip(grads["off"], grads["on"])),
+          f"{what}: one step's gradients with remat on bitwise those with "
+          f"it off, over all {len(grads['off'])} parameters")
+    on, off = stats["on"], stats["off"]
+    log(f"{what} ({card_line()}): forward + backward {off['ms']:.1f} ms and "
+        f"peak memory {off['peak'] / 2**30:.3f} GiB with remat off, "
+        f"{on['ms']:.1f} ms and {on['peak'] / 2**30:.3f} GiB with it on "
+        f"(host clock, synchronized, the median of the {runs - 1} runs "
+        f"after each model's first); launches per run off "
+        f"{off['launches']}, on {on['launches']}")
+    for (name, shape, dtype), (calls, err, ok) in sorted(found.items()):
+        log(f"  {name} {list(shape)} {dtype}: {calls} launches, largest "
+            f"|kernel - plain| {err:.3e}")
+    check(all(ok for *_, ok in found.values())
+          and {k[0] for k in found} == set(TRAINER_KERNELS)
+          and on["launches"] == stats["held"]["launches"]
+          and all(on["launches"][k] >= off["launches"][k] > 0
+                  for k in TRAINER_KERNELS),
+          f"{what}: each of the remat step's "
+          f"{sum(on['launches'].values())} launches within its tolerance of "
+          f"its plain version on the same inputs (the recompute's forward "
+          f"launches included)")
+    return dict(off=off, on=on)
+
+
+def per_pair_step_grads(batch_np):
+    """The first step's gradients of phase 6's two pairs in one process,
+    taken as the two ranks take them: one pair per forward and backward,
+    each over both pairs' denominators, the two gradients summed.  The
+    collectives are stood in for: a first pass records each pair's own
+    denominators, and the second replays their sums (the gradients' own
+    all-reduce, after them, passes its buffer through)."""
+    import torch
+    import torch.distributed as tdist
+
+    from regtr_tpu_torch.config import threedmatch_config
+    from regtr_tpu_torch.models import create_model
+    from regtr_tpu_torch.parallel import dist
+    from regtr_tpu_torch.train import steps
+    from regtr_tpu_torch.train.optim import Optimizer
+
+    cfg = threedmatch_config()
+    model = create_model(cfg, batch_np["points"].shape[1], DEVICE, seed=0)
+    opt = Optimizer(model.parameters(), cfg)
+    shares = [steps.batch_to_device(
+        {k: (batch_np[k][r:r + 1] if k == "pose"
+             else batch_np[k][2 * r:2 * r + 2]) for k in steps.BATCH_KEYS},
+        DEVICE) for r in range(2)]
+    mode = {"record": None, "replay": iter(())}
+
+    def all_reduce(buf):
+        if mode["record"] is not None:
+            mode["record"].append(buf.clone())
+            return
+        total = next(mode["replay"], None)
+        if total is not None:
+            buf.copy_(total)
+
+    real = (dist.world_size, dist._comm_device, tdist.all_reduce)
+    dist.world_size = lambda: 2
+    dist._comm_device = lambda: torch.device(DEVICE)
+    tdist.all_reduce = all_reduce
+    try:
+        own = [[], []]
+        for r in range(2):
+            mode["record"] = own[r]
+            with torch.no_grad():
+                steps.forward_loss(model, shares[r])
+        mode["record"] = None
+        grads = []
+        for r in range(2):
+            mode["replay"] = iter([a + b for a, b in zip(*own)])
+            losses, _ = steps.forward_loss(model, shares[r])
+            grads.append(steps.backward(opt, losses["total"])[0])
+    finally:
+        dist.world_size, dist._comm_device, tdist.all_reduce = real
+    names = [n for n, _ in model.named_parameters()]
+    return names, [a + b for a, b in zip(*grads)]
+
+
+def batch_shape_noise(batch_np):
+    """One process, phase 6's first pair: its first-step gradients alone
+    and in a batch of itself twice (the same loss: every numerator and
+    denominator doubles), as a list per parameter each."""
+    import torch
+
+    from regtr_tpu_torch.config import threedmatch_config
+    from regtr_tpu_torch.models import create_model
+    from regtr_tpu_torch.train import steps
+    from regtr_tpu_torch.train.optim import Optimizer
+
+    cfg = threedmatch_config()
+    model = create_model(cfg, batch_np["points"].shape[1], DEVICE, seed=0)
+    opt = Optimizer(model.parameters(), cfg)
+    pair = {k: batch_np[k][:1] if k == "pose" else batch_np[k][:2]
+            for k in steps.BATCH_KEYS}
+    out = []
+    for times in (1, 2):
+        batch = steps.batch_to_device(
+            {k: np.concatenate([v] * times) for k, v in pair.items()},
+            DEVICE)
+        losses, _ = steps.forward_loss(model, batch)
+        out.append(steps.backward(opt, losses["total"])[0])
+    return out
+
+
+def phase_data_parallel(trained):
+    """(a) the trainer on phase 8's run under the launcher, one rank per
+    card over NCCL; (b) two Gloo ranks sharing the card: the trainer, the
+    3DMatch test protocol on phase 7's files and the first step at full
+    width; (c) remat at full width."""
+    import torch
+
+    from regtr_tpu_torch.benchmark import predator
+    from regtr_tpu_torch.config import load_config, threedmatch_config
+    from regtr_tpu_torch.data import get_dataset
+    from regtr_tpu_torch.data.collate import collate_pairs
+    from regtr_tpu_torch.train.checkpoints import CheckpointManager
+    from regtr_tpu_torch.train.steps import batch_to_device
+
+    first, _ = TRAINER_STEPS
+    n_cards = torch.cuda.device_count()
+    smi = card_line()
+    log(f"== phase 12: data parallelism under python -m "
+        f"torch.distributed.run ({n_cards} card(s)), and remat")
+    work = PHASE12 / "runs"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    me = str(ROOT / "chip_smoke.py")
+    flags = ["--nb_sanity_val_steps", "1", "--summary_every", "2",
+             "--num_workers", "4"]
+    result = {}
+
+    # -- (a) one rank per card over NCCL, phase 8's first run
+    cfg_first = derived_config(TRAINER_CONFIG, work / "first.yaml",
+                               niter=first, **TRAINER_DATA)
+    out = work / "a"
+    out.mkdir()
+    launch_ranks(n_cards, [me, "--rank-worker", "trainer", str(out),
+                           "--config", str(cfg_first), "--logdir",
+                           str(out / "logs"), "--dist_backend", "nccl",
+                           "--validate_every", "4", *flags],
+                 f"(a) the trainer, {n_cards} rank(s) over NCCL")
+    ranks = [torch.load(out / f"rank{r}.pt", weights_only=True)
+             for r in range(n_cards)]
+    (run,) = (out / "logs").iterdir()
+    ref = trained["first_run"]
+    if n_cards == 1:
+        mine = torch.load(run / "ckpt" / str(first) / "state.pt",
+                          weights_only=True)["model"]
+        theirs = torch.load(PHASE12 / "phase8_state.pt",
+                            weights_only=True)["model"]
+        check(ranks[0]["totals"] == ref["totals"]
+              and mine.keys() == theirs.keys()
+              and all(torch.equal(mine[k], theirs[k]) for k in theirs),
+              f"(a) world size 1 (one process: no group is made): the "
+              f"{first} losses and the step-{first} checkpoint's "
+              f"{len(theirs)} tensors bitwise phase 8's")
+    step_ms = statistics.median(ranks[0]["step_s"][1:]) * 1e3
+    log(f"(a) ({smi}): median step {step_ms:.1f} ms, peak memory "
+        f"{ranks[0]['peak_bytes'] / 2**30:.2f} GiB under the launcher; "
+        f"phase 8's first run in-process {ref['median_step_ms']:.1f} ms, "
+        f"{ref['peak_bytes'] / 2**30:.2f} GiB (host clock, steps after "
+        f"the first)")
+    result["a"] = dict(world=n_cards, median_step_ms=step_ms,
+                       peak_bytes=ranks[0]["peak_bytes"],
+                       phase8_median_step_ms=ref["median_step_ms"],
+                       phase8_peak_bytes=ref["peak_bytes"])
+
+    # -- (b) two ranks on cuda:0 over Gloo: the trainer
+    cfg_dp = derived_config(TRAINER_CONFIG, work / "dp.yaml",
+                            niter=DP_TRAINER_STEPS, **TRAINER_DATA)
+    out = work / "b"
+    out.mkdir()
+    launch_ranks(2, [me, "--rank-worker", "trainer", str(out), "--config",
+                     str(cfg_dp), "--logdir", str(out / "logs"), "--device",
+                     "cuda:0", "--dist_backend", "gloo", "--validate_every",
+                     "2", *flags],
+                 "(b) the trainer, 2 ranks on one card over Gloo")
+    r0, r1 = (torch.load(out / f"rank{r}.pt", weights_only=True)
+              for r in range(2))
+    (run,) = (out / "logs").iterdir()
+    saver = CheckpointManager(run / "ckpt")
+    check(len(r0["params"]) == len(r1["params"]) > 0 and all(
+        torch.equal(a, b) for a, b in zip(r0["params"], r1["params"])),
+          f"(b) the two ranks' {len(r0['params'])} parameters bitwise equal "
+          f"after step {DP_TRAINER_STEPS}")
+    check(r0["totals"] == r1["totals"]
+          and len(r0["totals"]) == DP_TRAINER_STEPS
+          and all(np.isfinite(r0["totals"]))
+          and not any(r0["skipped"] + r1["skipped"]),
+          "(b) both ranks' global losses equal and finite, no update "
+          "skipped: " + " ".join(f"{t:.4f}" for t in r0["totals"]))
+    check((run / "log.txt").exists() and (run / "log.rank1.txt").exists()
+          and sorted(p.name for p in (run / "ckpt").iterdir())
+          == ["2", "4", "best.json"] and saver.best_record() is not None,
+          f"(b) one run directory ({run.name}) with log.rank1.txt; "
+          f"checkpoints {saver.all_steps()} and one best.json, rank 0's")
+    per_step = trained["per_step"]
+    check(all(n == per_step for n in r0["launches"] + r1["launches"]),
+          f"(b) every rank's every step launches phase 8's kernels: "
+          f"{per_step}")
+    dp_ms = statistics.median(r0["step_s"][1:]) * 1e3
+    log(f"(b) trainer ({smi}): median step {dp_ms:.1f} ms per rank, 2 "
+        f"ranks sharing the card (a global batch of "
+        f"{2 * load_config(cfg_dp)['train_batch_size']} pairs), peak "
+        f"memory {r0['peak_bytes'] / 2**30:.2f} and "
+        f"{r1['peak_bytes'] / 2**30:.2f} GiB")
+    result["b_trainer"] = dict(median_step_ms=dp_ms,
+                               peak_bytes=[r0["peak_bytes"],
+                                           r1["peak_bytes"]])
+
+    # -- (b) the 3DMatch test protocol on phase 7's parameters and root
+    proto = ROOT / ".build" / "protocol"
+    (cli_run,) = (proto / "cli_logs").iterdir()
+    logs = work / "test_logs"
+    launch_ranks(2, ["-m", "regtr_tpu_torch.test", "--params",
+                     str(proto / "ckpt" / "params.npz"), "--config",
+                     str(ROOT / "conf" / "3dmatch.yaml"), "--benchmark",
+                     "3DMatch", "--logdir", str(logs), "--device", "cuda:0",
+                     "--dist_backend", "gloo"],
+                 "(b) python -m regtr_tpu_torch.test, 2 ranks over Gloo",
+                 cwd=proto / "src")
+    (run,) = logs.iterdir()
+    n_pairs = 0
+    for si in range(PROTOCOL_SCENES):
+        scene = f"synthroom-{si}"
+        got, want = ({tuple(int(x) for x in p[:2]): pose for p, pose in zip(
+            *predator.read_trajectory(d / "3DMatch" / scene / "est.log"))}
+            for d in (run, cli_run))
+        check(got.keys() == want.keys() and all(
+            np.array_equal(got[k], want[k]) for k in want),
+              f"(b) scene {si}: the merged est.log holds phase 7's "
+              f"{len(want)} pairs, each pose bitwise")
+        n_pairs += len(want)
+    check(all((run / f"est_rank{r}").is_dir() for r in range(2))
+          and (run / "benchmark_report.txt").exists(),
+          "(b) both ranks' est.log trees beside the merged one, and rank "
+          "0's benchmark report")
+    result["b_protocol_pairs"] = n_pairs
+
+    # -- (b) the first step at full width, one pair per rank
+    launch_ranks(2, [me, "--rank-worker", "first_step", str(PHASE12)],
+                 "(b) phase 6's first step, one pair per rank over Gloo")
+    res = [json.loads((PHASE12 / f"first_step_rank{r}.json").read_text())
+           for r in range(2)]
+    check(res[0]["digest"] == res[1]["digest"],
+          "(b) the two ranks' sum-reduced gradients equal")
+    # phase 6's step holds both pairs in one batch; the ranks run one pair
+    # each, and the backbone's fp32 gradients move with a batch's shape
+    # (ROADMAP.md Queue C), so the ranks are held to one process that runs
+    # the ranks' shapes, and phase 6's step is the yardstick of both
+    names, per_pair = per_pair_step_grads(np.load(PHASE12 /
+                                                  "first_step.npz"))
+    ranks = torch.load(PHASE12 / "first_step_dp_grads.pt", weights_only=True)
+    batched = torch.load(PHASE12 / "first_step_grads.pt", weights_only=True)
+
+    def leaves(a, b):
+        """Relative L2 per leaf (the key biases aside: 0 in exact
+        arithmetic), worst first, and over all parameters as one vector."""
+        errs = sorted(((rel_l2(x.cpu(), y.cpu()), n) for n, x, y in zip(
+            names, a, b) if float(y.norm()) > 1e-6
+            and not n.endswith("k_proj.bias")), reverse=True)
+        flat = rel_l2(torch.cat([x.cpu().reshape(-1) for x in a]),
+                      torch.cat([y.cpu().reshape(-1) for y in b]))
+        return errs, flat
+
+    errs, flat = leaves(ranks, per_pair)
+    check(errs[0][0] < TOL_GRAD,
+          f"(b) the sum-reduced gradients of the two ranks (bucket "
+          f"{res[0]['n0']}, fp32) against one process's step on both pairs "
+          f"(one pair per forward, both pairs' denominators), leaf by leaf "
+          f"over {len(errs)} parameters (the key biases aside): worst rel L2 "
+          f"{errs[0][0]:.2e} ({errs[0][1]}; tol {TOL_GRAD}), all as one "
+          f"vector {flat:.2e}")
+    far = {what: leaves(g, batched) for what, g in (("ranks", ranks),
+                                                     ("one process",
+                                                      per_pair))}
+    alone, twice = batch_shape_noise(np.load(PHASE12 / "first_step.npz"))
+    noise, noise_all = leaves(twice, alone)
+    log(f"(b) the batch's shape alone (one process, phase 6's first pair "
+        f"in a batch of itself and of itself twice, the same loss): worst "
+        f"leaf {noise[0][0]:.2e} ({noise[0][1]}), median "
+        f"{noise[len(noise) // 2][0]:.2e}, all as one vector "
+        f"{noise_all:.2e}")
+    log("(b) against phase 6's step on both pairs in one batch: "
+        + "; ".join(f"{what}: worst leaf {e[0][0]:.2e} ({e[0][1]}), median "
+                    f"{e[len(e) // 2][0]:.2e}, all as one vector {v:.2e}"
+                    for what, (e, v) in far.items()))
+    check(far["ranks"][1] <= TOL_GRAD
+          and far["ranks"][1] <= 1.01 * far["one process"][1],
+          f"(b) the ranks' gradients as one vector {far['ranks'][1]:.2e} "
+          f"from phase 6's batched step (tol {TOL_GRAD}), as far as one "
+          f"process's per-pair step ({far['one process'][1]:.2e})")
+    result["first_step"] = dict(
+        vs_one_process=errs[0][0], vs_batched=far["ranks"][0][0][0],
+        vs_batched_all=far["ranks"][1],
+        one_process_vs_batched=far["one process"][0][0][0],
+        batch_shape=noise[0][0])
+    ar = statistics.median(res[0]["allreduce_ms"])
+    mib = res[0]["grad_bytes"] / 2**20
+    log(f"(b) all-reduce of the step's gradients ({mib:.1f} MiB fp32, one "
+        f"flat buffer, Gloo through host copies, 2 ranks on one card; "
+        f"{smi}): median {ar:.1f} ms of "
+        + " ".join(f"{x:.1f}" for x in res[0]["allreduce_ms"])
+        + " (host clock)")
+    result["allreduce_ms"] = ar
+
+    # -- (c) remat at full width
+    mn = load_config(MODELNET_CONFIG)
+    mn["root"] = str(MODELNET_NO_SHARDS)
+    dataset = get_dataset(mn, "train")
+    batch_np, _ = collate_pairs([dataset[i] for i in
+                                 range(mn["train_batch_size"])],
+                                mn["buckets"])
+    result["remat_modelnet"] = remat_steps(
+        mn, batch_to_device(batch_np, DEVICE),
+        f"(c) remat on {MODELNET_CONFIG.name} (fp32, bucket "
+        f"{batch_np['points'].shape[1]}, {mn['train_batch_size']} pairs)")
+    data = np.load(PHASE12 / "first_step.npz")
+    check(data["points"].shape[1] == REMAT_3DMATCH_BUCKET,
+          f"phase 6's batch at bucket {REMAT_3DMATCH_BUCKET}")
+    result["remat_3dmatch"] = remat_steps(
+        threedmatch_config(), batch_to_device(data, DEVICE),
+        f"(c) remat on 3dmatch.yaml (fp32, bucket {REMAT_3DMATCH_BUCKET}, "
+        f"phase 6's 2 pairs)")
+    return result
+
+
 def main():
     if not (ROOT / "regtr_tpu_torch").is_dir():
         raise SystemExit("FAILED: run chip_smoke.py from a checkout of the "
@@ -3216,6 +3732,12 @@ def main():
     modelnet = timed("9", phase_modelnet, modelnet_shape)
     timed("10", phase_tools, protocol)
     options = timed("11", phase_options)
+    parallel = timed("12", phase_data_parallel, trained)
+    log(f"data parallel (phase 12): all-reduce "
+        f"{parallel['allreduce_ms']:.1f} ms per step (Gloo, 2 ranks on one "
+        f"card); at world size {parallel['a']['world']} a step "
+        f"{parallel['a']['median_step_ms']:.1f} ms beside phase 8's "
+        f"{parallel['a']['phase8_median_step_ms']:.1f} ms")
     log("seconds per phase (host clock): " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items()) + f"; all "
         f"{sum(seconds.values()):.1f}")
@@ -3267,7 +3789,11 @@ def main():
                             "launches_per_micro_step"][name],
                         dropout_step=options["dropout"]["launches"][name],
                         searches_per_pair=options["search"]["launches"][
-                            name]))
+                            name]),
+                    remat_launches_per_step={
+                        what: {route: parallel[f"remat_{what}"][route][
+                            "launches"][name] for route in ("off", "on")}
+                        for what in ("modelnet", "3dmatch")})
 
     src = "regtr_tpu_torch/csrc/"
     log(json.dumps({"kernels": [
@@ -3352,4 +3878,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank-worker"]:
+        rank_worker(*sys.argv[2:])
+    else:
+        main()

@@ -63,8 +63,10 @@ def get_dataloader(cfg, phase: str, num_workers: int = 4, shard=None):
         seed=int(cfg.get("seed", 0)),
         drop_last=phase == "train",
         shard=shard,
-        # every val batch has the full batch shape; test pairs are never
-        # duplicated
+        # train and val run collectives on every batch, so every rank must
+        # see as many batches; test pairs are never duplicated
+        shard_pad=phase in ("train", "val"),
+        # every val batch has the full batch shape
         pad_last_batch=phase == "val",
         group_key=group_key,
     )

@@ -9,8 +9,9 @@ flags throughout.  The upstream pipeline's quirks are kept:
     (`predator_compat`, on by default);
   * RandomCrop crops the reference cloud with p_keep[0] as well.
 Evaluation is deterministic: SetDeterministic makes every later transform
-reseed from the sample's index.  The adapters to other methods' tuples
-(Dict2DcpList, Dict2PointnetLKList) are not ported.
+reseed from the sample's index.  Dict2DcpList and Dict2PointnetLKList turn
+a sample into the tuples of other methods' loaders (Deep Closest Point,
+PointNetLK).
 """
 from __future__ import annotations
 
@@ -371,3 +372,36 @@ def get_transforms(noise_type: str, rot_mag=45.0, trans_mag=0.5,
     else:
         raise ValueError(f"unknown noise_type {noise_type!r}")
     return ComposeMN(train), ComposeMN(test)
+
+
+class Dict2DcpList:
+    """A sample -> Deep Closest Point's tuple (src, target, rotation_ab,
+    translation_ab, rotation_ba, translation_ba, euler_ab, euler_ba)."""
+
+    def __call__(self, sample, rng=None):
+        from scipy.spatial.transform import Rotation
+
+        target = sample["points_src"][:, :3].T.copy()
+        src = sample["points_ref"][:, :3].T.copy()
+        rotation_ab = sample["transform_gt"][:3, :3].T.copy()
+        translation_ab = -rotation_ab @ sample["transform_gt"][:3, 3].copy()
+        rotation_ba = sample["transform_gt"][:3, :3].copy()
+        translation_ba = sample["transform_gt"][:3, 3].copy()
+        euler_ab = Rotation.from_matrix(rotation_ab).as_euler("zyx").copy()
+        euler_ba = Rotation.from_matrix(rotation_ba).as_euler("xyz").copy()
+        return (src, target, rotation_ab, translation_ab,
+                rotation_ba, translation_ba, euler_ab, euler_ba)
+
+
+class Dict2PointnetLKList:
+    """A sample -> PointNetLK's tuple: (points, label) for a clean sample,
+    else (source, reference, the 4x4 groundtruth pose)."""
+
+    def __call__(self, sample, rng=None):
+        if "points" in sample:
+            return sample["points"][:, :3], sample["label"]
+        gt_4x4 = np.concatenate(
+            [sample["transform_gt"],
+             np.array([[0.0, 0.0, 0.0, 1.0]], np.float32)], axis=0)
+        return (sample["points_src"][:, :3], sample["points_ref"][:, :3],
+                gt_4x4)

@@ -7,9 +7,12 @@ interpreter lock for the heavy work), and collated batches wait in a
 bounded queue, so the host prepares the next batches while the card runs
 the current one.
 
-One process only: `shard` (the JAX loader's per-host partition of the
-sample indices) must be None until the multi-GPU port (ROADMAP.md Queue A,
-item 6).
+Several ranks: `shard=(rank, world)` partitions the sample indices (every
+world-th from the rank's).  `shard_pad` wraps a short shard to the longest
+one's length, so that every rank yields the same number of batches: the
+train and validation loops run collectives on every batch, and a rank with
+one batch more would leave the others waiting.  The few duplicated samples
+bias the averaged metrics negligibly (as torch's DistributedSampler does).
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import queue
 import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 
@@ -33,14 +36,13 @@ class DataLoader:
         prefetch: int = 2,
         seed: int = 0,
         drop_last: bool = False,
-        shard=None,
+        shard: Optional[Tuple[int, int]] = None,
+        shard_pad: bool = False,
         pad_last_batch: bool = False,
         group_key: Optional[Callable] = None,
     ):
-        if shard is not None:
-            raise NotImplementedError(
-                "DataLoader(shard=...): one process only until the "
-                "multi-GPU port (ROADMAP.md Queue A, item 6)")
+        if shard is not None and not 0 <= shard[0] < shard[1]:
+            raise ValueError(f"shard {shard}: rank not in [0, world)")
         self.dataset = dataset
         self.batch_size = batch_size
         self.collate_fn = collate_fn
@@ -49,6 +51,8 @@ class DataLoader:
         self.prefetch = max(1, prefetch)
         self.seed = seed
         self.drop_last = drop_last
+        self.shard = shard
+        self.shard_pad = shard_pad
         # Wrap-pad the final batch to full batch_size with leading samples,
         # so every batch has one shape (val); never for test protocols,
         # where duplicated pairs would corrupt the scores.
@@ -56,7 +60,9 @@ class DataLoader:
         # group_key(sample) -> hashable: samples are regrouped into
         # same-key batches as they stream through (size-grouped test
         # batching).  The batch order changes, so consumers key results on
-        # the sample's idx; the multiset of samples does not change.
+        # the sample's idx; the multiset of samples does not change.  Not
+        # for collective loops: grouping makes the ranks' batch counts
+        # differ.
         self.group_key = group_key
         self._epoch = 0
 
@@ -64,9 +70,19 @@ class DataLoader:
         self._epoch = epoch
 
     def _indices(self):
-        idx = np.arange(len(self.dataset))
+        n = len(self.dataset)
+        idx = np.arange(n)
         if self.shuffle:
             np.random.RandomState(self.seed + self._epoch).shuffle(idx)
+        if self.shard is not None:
+            rank, world = self.shard
+            full, idx = idx, idx[rank::world]
+            if self.shard_pad and n > 0:
+                target = -(-n // world)       # the longest shard's length
+                if len(idx) == 0:
+                    idx = full[[rank % n]]
+                while len(idx) < target:
+                    idx = np.concatenate([idx, idx[:target - len(idx)]])
         return idx
 
     def __len__(self):

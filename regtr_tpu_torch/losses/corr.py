@@ -1,11 +1,13 @@
 """Correspondence loss (counterpart of regtr_tpu/losses/corr.py): the error
 between predicted warped keypoints and the keypoints moved by the GT pose,
-weighted by the GT overlap and normalized by the total weight."""
+weighted by the GT overlap and normalized by the total weight (the global
+batch's with several ranks: parallel/dist.py)."""
 from __future__ import annotations
 
 import torch
 
 from ..core.se3 import se3_transform
+from ..parallel.dist import all_reduce_sum
 
 _EPS = 1e-6
 
@@ -25,4 +27,4 @@ def corr_loss(kp: torch.Tensor, kp_warped_pred: torch.Tensor,
         raise ValueError(metric)
     w = overlap_weights
     num = (w * err).sum(dim=(-2, -1))
-    return num / w.sum(dim=(-2, -1)).clamp_min(_EPS)
+    return num / all_reduce_sum(w.sum(dim=(-2, -1))).clamp_min(_EPS)

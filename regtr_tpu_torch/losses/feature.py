@@ -1,7 +1,11 @@
 """Feature losses (counterparts of regtr_tpu/losses/feature.py): InfoNCE
 with a learned symmetric bilinear similarity, and the circle losses, over
 all descriptor pairs (`circle`) or over sampled groundtruth
-correspondences (`circle_sampled`)."""
+correspondences (`circle_sampled`).
+
+With several ranks each loss is this rank's numerator over the global
+batch's denominator (parallel/dist.py): InfoNCE's count of pairs, the
+circle losses' counts of selected rows and columns."""
 from __future__ import annotations
 
 import struct
@@ -11,6 +15,7 @@ import torch.nn as nn
 
 from ..core.masking import masked_logsumexp
 from ..ops.kpconv import GatherIndex, batched_row_gather
+from ..parallel.dist import all_reduce_sum, global_mean
 
 _INF = 1.0e9
 
@@ -41,7 +46,8 @@ class InfoNCELoss(nn.Module):
                 anchor_mask, positive_mask):
         """anchor_feat (B, Na, D), positive_feat (B, Np, D), anchor_xyz
         (B, Na, 3) already GT-aligned, positive_xyz (B, Np, 3), masks
-        (B, Na) / (B, Np) -> scalar, the mean over pairs."""
+        (B, Na) / (B, Np) -> scalar, the mean over the (global) batch's
+        pairs."""
         w_triu = torch.triu(self.W)
         w_sym = w_triu + w_triu.t()
         logits = (anchor_feat.float() @ w_sym) @ positive_feat.float(
@@ -62,7 +68,7 @@ class InfoNCELoss(nn.Module):
         per_anchor = masked_logsumexp(logits, keep, dim=-1) - pos_logit
         m = match_mask.to(torch.float32)
         per_pair = (per_anchor * m).sum(dim=-1) / m.sum(dim=-1).clamp_min(1.0)
-        return per_pair.mean()
+        return global_mean(per_pair)
 
 
 def _feature_dist(feats_a, feats_b, dist_type):
@@ -104,7 +110,7 @@ def _circle_core(coords_dist, fd, valid, r_p, r_n, log_scale, pos_margin,
 
     def sel_mean(x, sel):
         s = sel.to(x.dtype)
-        return (x * s).sum() / s.sum().clamp_min(1.0)
+        return (x * s).sum() / all_reduce_sum(s.sum()).clamp_min(1.0)
 
     return (sel_mean(loss_row, row_sel) + sel_mean(loss_col, col_sel)) / 2.0
 
@@ -121,13 +127,23 @@ def circle_loss(feats_a, feats_b, xyz_a, xyz_b, mask_a, mask_b, r_p, r_n,
                         pos_margin, neg_margin)
 
 
-def correspondence_seed(xyz: torch.Tensor, salt: int) -> int:
+def correspondence_seed(xyz: torch.Tensor, salt: int, rank: int = 0) -> int:
     """A sampling seed from the bits of the fp32 sum of `xyz` and a salt,
     as the JAX package folds them into its key (one host sync): sampling
-    is random across batches and repeatable on the same batch."""
+    is random across batches and repeatable on the same batch.
+
+    With several ranks `xyz` is this rank's shard and its rank is folded
+    in, so that two ranks holding equal shards draw different samples.
+    The JAX mesh seeds once from the global batch's sum and draws the
+    global batch's samples in one go; no rank can reproduce its share of
+    those draws, so the sampled loss of several ranks is not the one
+    process's on the concatenated batch (ROADMAP.md Queue C)."""
     bits = struct.unpack("<i", struct.pack("<f", float(
         xyz.sum(dtype=torch.float32))))[0]
-    return ((17 * 1_000_003 + bits) * 1_000_003 + int(salt)) % (2 ** 63)
+    seed = ((17 * 1_000_003 + bits) * 1_000_003 + int(salt)) % (2 ** 63)
+    if rank:
+        seed = (seed * 1_000_003 + int(rank)) % (2 ** 63)
+    return seed
 
 
 def sample_correspondences(generator, xyz_a, xyz_b, mask_a, mask_b, r_p,

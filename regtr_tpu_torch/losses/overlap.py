@@ -1,8 +1,11 @@
 """Overlap loss: binary cross-entropy with logits, the mean over every valid
-point of both clouds (counterpart of regtr_tpu/losses/overlap.py)."""
+point of both clouds (counterpart of regtr_tpu/losses/overlap.py).  With
+several ranks, the count is the global batch's (parallel/dist.py)."""
 from __future__ import annotations
 
 import torch
+
+from ..parallel.dist import all_reduce_sum
 
 
 def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor
@@ -17,4 +20,5 @@ def overlap_loss(logits: torch.Tensor, labels: torch.Tensor,
     """logits, labels in [0, 1] and mask, all (..., N) -> scalar masked mean."""
     elt = bce_with_logits(logits, labels)
     m = mask.to(elt.dtype)
-    return (elt * m).sum() / m.sum().clamp_min(1.0)
+    count = all_reduce_sum(m.sum())         # the global batch's
+    return (elt * m).sum() / count.clamp_min(1.0)

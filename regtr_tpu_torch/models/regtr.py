@@ -17,6 +17,10 @@ call that is not deterministic with `dropout` > 0 needs a
 without one (JAX raises for a missing 'dropout' rng).  The sampled circle
 loss seeds its own generator from the batch (losses/feature.py
 `correspondence_seed`), as JAX derives its key from it.
+
+With several ranks (parallel/dist.py) `compute_loss` is a collective: its
+losses are this rank's share of the global batch's, each over the global
+batch's denominator, and every rank must call it.
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ from ..nn.pos_embed import (PositionEmbeddingCoordsSine,
                              PositionEmbeddingLearned)
 from ..nn.transformer import TransformerCrossEncoder
 from ..ops.pyramid import PyramidSpec, build_pyramid, compute_overlap_pyramid
+from ..parallel import dist
 
 
 class RegTR(nn.Module):
@@ -64,6 +69,8 @@ class RegTR(nn.Module):
             ca_val_has_pos_emb=cfg.get("ca_val_has_pos_emb", True),
             compute_dtype=compute_dtype(cfg),
             dropout=float(cfg.get("dropout", 0.0)),
+            # the backbone's blocks read cfg['remat'] themselves
+            remat=bool(cfg.get("remat_transformer", False)),
         )
         if cfg.get("direct_regress_coor", False):
             self.head = CorrespondenceRegressor(d_embed)
@@ -216,7 +223,7 @@ class RegTR(nn.Module):
                 return criterion(*args)
             if feat_type == "circle_sampled":
                 gen = torch.Generator(device=src_kp.device).manual_seed(
-                    correspondence_seed(src_kp_gt_warped, salt))
+                    correspondence_seed(src_kp_gt_warped, salt, dist.rank()))
                 return circle_loss_sampled(
                     *args, cfg["r_p"], cfg["r_n"], gen,
                     n_sample=int(cfg.get("circle_n_sample", 256)))

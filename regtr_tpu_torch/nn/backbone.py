@@ -71,6 +71,8 @@ class KPFEncoder(nn.Module):
     that table's influence geometry and its flat gather ids; later blocks
     at the same table reuse both, and the table's gather transpose is built
     once, at the first backward that needs it (nn/blocks.py `TableState`).
+    With `cfg['remat']` (default True) every conv block is recomputed in
+    the backward (nn/blocks.py `_conv_block`).
     """
 
     def __init__(self, cfg):

@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..core.masking import masked_instance_norm
 from ..ops.kpconv import (GatherIndex, kpconv_apply, kpconv_deformable,
@@ -213,29 +214,55 @@ def _tables(levels, layer_ind, strided, tables):
     return q_pts, mask, tables[key]
 
 
+def _conv_block(block, x, levels, tables):
+    """A conv block on its table's shared state: `block.block` on the
+    table's GatherIndex and geometry, which the first block at the table
+    computes and hands back.  With `block.remat`, under autograd, the block
+    runs under a non-reentrant `torch.utils.checkpoint` (the JAX package's
+    `nn.remat`): its activations are recomputed in the backward instead of
+    kept.  The table's state stays outside the checkpoint, so the
+    recompute sees the same inputs: the geometry leaves the block as an
+    output instead of being stored by it (a stored one would send the
+    recompute down the other path), and the GatherIndex is the same
+    object, whose transpose is built once."""
+    q_pts, out_mask, table = _tables(levels, block.layer_ind, block.strided,
+                                     tables)
+    args = (x, q_pts, levels[block.layer_ind].points,
+            levels[block.layer_ind].mask, out_mask, table.index, table.geom)
+    if block.remat and torch.is_grad_enabled():
+        out, geom = checkpoint(block.block, *args, use_reentrant=False)
+    else:
+        out, geom = block.block(*args)
+    table.geom = table.geom or geom
+    return out
+
+
 class SimpleBlock(nn.Module):
-    """KPConv(out/2) -> norm -> LeakyReLU."""
+    """KPConv(out/2) -> norm -> LeakyReLU.  `cfg['remat']` (default True,
+    as the JAX package reads it) recomputes it in the backward."""
 
     def __init__(self, block_name, in_dim, out_dim, radius, layer_ind, cfg,
                  block_index=None):
         super().__init__()
         self.strided = "strided" in block_name
         self.layer_ind = layer_ind
+        self.remat = bool(cfg.get("remat", True))
         self.kpconv = _kpconv_layer(cfg, in_dim, out_dim // 2, radius,
                                     block_name, block_index)
         self.norm = NormBlock(out_dim // 2, cfg.get("use_batch_norm", True))
 
     def forward(self, x, levels, tables):
-        q_pts, out_mask, table = _tables(levels, self.layer_ind,
-                                         self.strided, tables)
-        out, _, geom = self.kpconv(q_pts, levels[self.layer_ind].points,
-                                   table.index, x, geom=table.geom)
-        table.geom = table.geom or geom
-        return leaky_relu(self.norm(out, out_mask))
+        return _conv_block(self, x, levels, tables)
+
+    def block(self, x, q_pts, s_pts, in_mask, out_mask, index, geom):
+        """-> (output, the table's geometry when this block computed it)."""
+        out, _, geom = self.kpconv(q_pts, s_pts, index, x, geom=geom)
+        return leaky_relu(self.norm(out, out_mask)), geom
 
 
 class ResnetBottleneckBlock(nn.Module):
-    """unary(out/4) -> KPConv -> norm/relu -> unary(out) + shortcut."""
+    """unary(out/4) -> KPConv -> norm/relu -> unary(out) + shortcut;
+    recomputed in the backward with `cfg['remat']`, as SimpleBlock."""
 
     def __init__(self, block_name, in_dim, out_dim, radius, layer_ind, cfg,
                  block_index=None):
@@ -243,6 +270,7 @@ class ResnetBottleneckBlock(nn.Module):
         use_bn = cfg.get("use_batch_norm", True)
         self.strided = "strided" in block_name
         self.layer_ind = layer_ind
+        self.remat = bool(cfg.get("remat", True))
         mid = out_dim // 4
         self.unary1 = (UnaryBlock(in_dim, mid, use_bn) if in_dim != mid
                        else None)
@@ -255,15 +283,15 @@ class ResnetBottleneckBlock(nn.Module):
                                if in_dim != out_dim else None)
 
     def forward(self, x, levels, tables):
-        q_pts, out_mask, table = _tables(levels, self.layer_ind,
-                                         self.strided, tables)
-        in_mask = levels[self.layer_ind].mask
+        return _conv_block(self, x, levels, tables)
+
+    def block(self, x, q_pts, s_pts, in_mask, out_mask, index, geom):
+        """-> (output, the table's geometry when this block computed it)."""
         h = self.unary1(x, in_mask) if self.unary1 is not None else x
         # Strided blocks max-pool the shortcut over the conv's own table.
         h, pooled, geom = self.kpconv(
-            q_pts, levels[self.layer_ind].points, table.index, h,
-            geom=table.geom, x_extra=x if self.strided else None)
-        table.geom = table.geom or geom
+            q_pts, s_pts, index, h, geom=geom,
+            x_extra=x if self.strided else None)
         h = leaky_relu(self.norm_conv(h, out_mask))
         h = self.unary2(h, out_mask)
         # The pooled shortcut is in the compute dtype; a bf16 -> fp32 cast is
@@ -271,4 +299,4 @@ class ResnetBottleneckBlock(nn.Module):
         shortcut = pooled.float() if self.strided else x
         if self.unary_shortcut is not None:
             shortcut = self.unary_shortcut(shortcut, out_mask)
-        return leaky_relu(h + shortcut)
+        return leaky_relu(h + shortcut), geom

@@ -25,6 +25,7 @@ import contextlib
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..core.masking import NEG_INF
 from ..core.pairs import swap_pairs
@@ -201,15 +202,44 @@ class CrossEncoderLayer(nn.Module):
         return self.norm3(x + drop(self._ffn(x, drop)))
 
 
+def checkpointed_layer(layer, x, pos, mask, generator=None):
+    """layer(x, pos, mask, generator) under a non-reentrant
+    `torch.utils.checkpoint`: its activations are recomputed in the
+    backward.  The checkpoint restores torch's global random states for the
+    recompute, never a caller's generator, so the dropout masks are
+    replayed by hand: the recompute draws from a copy of `generator` in the
+    state the first call found it in, and the caller's generator moves
+    only once, as without the checkpoint."""
+    if generator is None:
+        return checkpoint(layer, x, pos, mask, use_reentrant=False)
+    state = generator.get_state()
+    calls = []
+
+    def run(x, pos, mask):
+        gen = generator
+        if calls:                               # the recompute
+            gen = torch.Generator(device=generator.device)
+            gen.set_state(state)
+        calls.append(1)
+        return layer(x, pos, mask, gen)
+
+    return checkpoint(run, x, pos, mask, use_reentrant=False)
+
+
 class TransformerCrossEncoder(nn.Module):
     """Stack of cross-encoder layers -> all per-layer outputs
-    (L, 2B, N, D), each through the final norm when pre-norm."""
+    (L, 2B, N, D), each through the final norm when pre-norm.  With
+    `remat` (the config's `remat_transformer`, default False as in the JAX
+    package) each layer is recomputed in the backward
+    (`checkpointed_layer`)."""
 
     def __init__(self, d_model, nhead, num_layers, d_feedforward=1024,
                  activation="relu", pre_norm=True, sa_val_has_pos_emb=True,
-                 ca_val_has_pos_emb=True, compute_dtype=None, dropout=0.0):
+                 ca_val_has_pos_emb=True, compute_dtype=None, dropout=0.0,
+                 remat=False):
         super().__init__()
         self.num_layers = num_layers
+        self.remat = remat
         for i in range(num_layers):
             self.add_module(f"layer_{i}", CrossEncoderLayer(
                 d_model, nhead, d_feedforward, activation, pre_norm,
@@ -220,8 +250,11 @@ class TransformerCrossEncoder(nn.Module):
 
     def forward(self, x, pos, mask, generator=None):
         intermediates = []
+        remat = self.remat and torch.is_grad_enabled()
         for i in range(self.num_layers):
-            x = getattr(self, f"layer_{i}")(x, pos, mask, generator)
+            layer = getattr(self, f"layer_{i}")
+            x = (checkpointed_layer(layer, x, pos, mask, generator) if remat
+                 else layer(x, pos, mask, generator))
             intermediates.append(self.norm_final(x)
                                  if self.norm_final is not None else x)
         return torch.stack(intermediates, dim=0)

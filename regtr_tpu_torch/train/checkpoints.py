@@ -11,6 +11,11 @@ validation score, {"step", "score"}, higher is better.  Like orbax's
 manager, it keeps the last `max_to_keep` checkpoints and, every
 `keep_every_hours`, one for good.
 
+With several ranks (parallel/dist.py) only rank 0 writes the checkpoint and
+best.json; `save` is a collective (every rank waits at a barrier until the
+files are on disk, then reads the directory again), and every rank can
+restore, onto its own device.
+
 The .npz archive holds one array per parameter under JAX's 'a/b/c' keys
 (the format tools/convert_torch_ckpt.py writes too), so the JAX package and
 the port read each other's files.
@@ -29,6 +34,7 @@ import numpy as np
 import torch
 
 from ..convert import jax_params_from_state_dict, state_dict_from_jax
+from ..parallel import dist
 
 logger = logging.getLogger("regtr_tpu_torch")
 
@@ -54,6 +60,10 @@ class CheckpointManager:
         self._best_file = self.directory / "best.json"
         # step -> save time, of the checkpoints on disk
         self._times = {}
+        self._scan()
+
+    def _scan(self):
+        self._times.clear()
         if self.directory.is_dir():
             for d in self.directory.iterdir():
                 if d.name.isdigit() and (d / _INFO).exists():
@@ -66,10 +76,15 @@ class CheckpointManager:
         """Save the model's and the optimizer's state at `step`, unless a
         checkpoint at this step or a later one exists (orbax's rule); then
         update best.json when `score` beats its record.  Returns whether a
-        checkpoint was written."""
+        checkpoint was written.  A collective with several ranks: rank 0
+        writes, the others wait and then read the directory."""
         step = int(step)
         latest = self.latest_step()
         saved = latest is None or step > latest
+        if dist.rank() != 0:
+            dist.barrier()
+            self._scan()
+            return saved
         if saved:
             self.directory.mkdir(parents=True, exist_ok=True)
             tmp = self.directory / f"tmp-{step}"
@@ -90,6 +105,7 @@ class CheckpointManager:
             if best is None or score > best["score"]:
                 self._best_file.write_text(json.dumps(
                     {"step": step, "score": float(score)}))
+        dist.barrier()
         return saved
 
     def _remove_old(self):

@@ -1,5 +1,9 @@
 """Run directories, logging and metric accumulation (the port's counterpart
-of regtr_tpu/train/logging_utils.py), for one process.
+of regtr_tpu/train/logging_utils.py).
+
+With several ranks they share rank 0's run directory; rank r > 0 logs to
+log.rank{r}.txt and writes metrics_<subdir>.rank{r}.jsonl, and only rank 0
+writes TensorBoard.
 
 `MetricsWriter` always appends to metrics_<subdir>.jsonl, with the JAX
 package's records; TensorBoard gets the same scalars and histograms only
@@ -18,6 +22,8 @@ from pathlib import Path
 
 import numpy as np
 
+from ..parallel import dist
+
 
 def prepare_logger(log_path=None, dev: bool = False,
                    name: str = "regtr_tpu_torch"):
@@ -26,15 +32,19 @@ def prepare_logger(log_path=None, dev: bool = False,
 
     The directory is fresh: a new timestamped one under log_path (default
     ../logs), or ../logdev wiped first with dev.  The test protocol appends
-    to its est.log files, so a reused directory would mix two runs.
+    to its est.log files, so a reused directory would mix two runs.  Every
+    rank gets rank 0's directory (its timestamp is broadcast): the test
+    protocol merges the ranks' est.log trees under it.
     """
+    rank = dist.rank()
     if dev:
         logdir = Path("../logdev")
-        if logdir.exists():
+        if rank == 0 and logdir.exists():
             shutil.rmtree(logdir)
+        dist.barrier()
     else:
         base = Path(log_path) if log_path else Path("../logs")
-        logdir = base / time.strftime("%y%m%d_%H%M%S")
+        logdir = base / dist.broadcast_object(time.strftime("%y%m%d_%H%M%S"))
     logdir.mkdir(parents=True, exist_ok=True)
 
     logger = logging.getLogger(name)
@@ -45,7 +55,8 @@ def prepare_logger(log_path=None, dev: bool = False,
     console.setFormatter(logging.Formatter(
         "%(asctime)s [%(levelname)s] %(message)s", "%H:%M:%S"))
     logger.addHandler(console)
-    fileh = logging.FileHandler(logdir / "log.txt")
+    fileh = logging.FileHandler(
+        logdir / ("log.txt" if rank == 0 else f"log.rank{rank}.txt"))
     fileh.setLevel(logging.DEBUG)
     fileh.setFormatter(logging.Formatter(
         "%(asctime)s [%(levelname)s] %(name)s: %(message)s"))
@@ -58,7 +69,8 @@ def prepare_logger(log_path=None, dev: bool = False,
                              timeout=5).stdout.strip() or "unknown"
         diff = subprocess.run(["git", "diff"], capture_output=True,
                               text=True, timeout=10).stdout
-        (logdir / "compareHead.diff").write_text(diff)
+        if rank == 0:
+            (logdir / "compareHead.diff").write_text(diff)
     except (OSError, subprocess.TimeoutExpired):
         sha = "unknown"
     logger.info("Command: %s", " ".join(sys.argv))
@@ -88,8 +100,8 @@ def combine_process_sums(gathered):
     """Global averages from per-process (sum, count) statistics.
 
     gathered: (P, K, 2), each of P processes' (sum, count) of K metrics.
-    Returns (K,) averages.  One process today; the multi-GPU port reduces
-    its validation metrics through it.
+    Returns (K,) averages (the trainer's `_global_averages` feeds it the
+    ranks' validation meters).
     """
     tot = np.asarray(gathered, np.float64).sum(axis=0)       # (K, 2)
     return tot[:, 0] / np.maximum(tot[:, 1], 1.0)
@@ -125,12 +137,20 @@ class StatsMeter:
 
 
 class MetricsWriter:
-    """metrics_<subdir>.jsonl (always) + TensorBoard (when it imports)."""
+    """metrics_<subdir>.jsonl (always) + TensorBoard (when it imports).
+
+    Rank r > 0 writes metrics_<subdir>.rank{r}.jsonl (its metrics are the
+    global batch's, as rank 0's: a file of its own keeps two writers out of
+    one file) and no TensorBoard."""
 
     def __init__(self, logdir, subdir="train"):
-        self.path = Path(logdir) / f"metrics_{subdir}.jsonl"
+        rank = dist.rank()
+        suffix = "" if rank == 0 else f".rank{rank}"
+        self.path = Path(logdir) / f"metrics_{subdir}{suffix}.jsonl"
         self._f = open(self.path, "a")
         self._tb = None
+        if rank != 0:
+            return
         try:
             from torch.utils.tensorboard import SummaryWriter
         except ImportError:

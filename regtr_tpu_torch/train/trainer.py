@@ -18,9 +18,14 @@ and the optimizer (best by validation score).  As in the JAX package:
     parameters move every k-th (train/optim.py), as under optax's
     MultiSteps; `dropout` > 0 raises, as the JAX trainer's step does.
 
-One process: the JAX trainer's mesh and its cross-host validation reduction
-wait for the multi-GPU port (ROADMAP.md Queue A, item 6).  There is no
-progress bar; the summaries are logged.
+Several ranks (parallel/dist.py, launched by `torch.distributed.run`):
+each runs this loop on its own device over its shard of the loaders (of
+equal lengths: `shard_pad`), the steps reduce over the ranks
+(train/steps.py), validation averages the ranks' meters
+(`_global_averages`), and rank 0 writes the checkpoints.  A step that
+raises re-raises at once: the other ranks are inside its collectives, and
+a skipped step would leave them waiting.  There is no progress bar; the
+summaries are logged.
 """
 from __future__ import annotations
 
@@ -32,8 +37,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..parallel import dist
 from .checkpoints import CheckpointManager, resolve_ckpt_dir
-from .logging_utils import MetricsWriter, StatsMeter
+from .logging_utils import MetricsWriter, StatsMeter, combine_process_sums
 from .optim import Optimizer
 from .steps import batch_to_device, make_eval_step, make_train_step
 
@@ -167,11 +173,13 @@ class Trainer:
                         "Train step %d failed (%d consecutive)", step + 1,
                         consecutive_failures)
                     if (optimizer.torn or optimizer.position != position
-                            or not _device_usable(device)):
+                            or not _device_usable(device)
+                            or dist.world_size() > 1):
                         self.logger.error(
-                            "The failure hit the update, came after it or "
-                            "hit the device: re-raising (resume from the "
-                            "last checkpoint).")
+                            "The failure hit the update, came after it, "
+                            "hit the device or left the other ranks in "
+                            "the step: re-raising (resume from the last "
+                            "checkpoint).")
                         raise
                     if consecutive_failures >= MAX_CONSECUTIVE_FAILURES:
                         raise
@@ -236,7 +244,7 @@ class Trainer:
             for k in [k for k in metrics if k.startswith("hist/")]:
                 per_pair.setdefault(k, []).append(metrics.pop(k))
             meters.update(metrics)
-        avgs = meters.averages()
+        avgs = self._global_averages(meters)
         score = avgs.get("reg_success_final", 0.0)
         self.logger.info(
             "validation | score %.4f | %s", score,
@@ -247,6 +255,18 @@ class Trainer:
                 writer.write_histogram(step, k, np.concatenate(chunks))
         self.timing["validation_s"] += time.perf_counter() - t0
         return score
+
+    @staticmethod
+    def _global_averages(meters: StatsMeter) -> dict:
+        """The meters' averages, over every rank's meters with several
+        (each rank validates its shard; regtr_tpu/train/trainer.py
+        `_global_averages`)."""
+        if dist.world_size() == 1:
+            return meters.averages()
+        keys = sorted(meters.meters)
+        gathered = dist.allgather(torch.from_numpy(
+            meters.sums_counts(keys))).numpy()
+        return dict(zip(keys, combine_process_sums(gathered).tolist()))
 
     def test(self, model, test_loader, test_step_fn):
         """test_step_fn(model, batch, meta) over the test loader, the batch

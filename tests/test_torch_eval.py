@@ -159,12 +159,14 @@ def test_loader_batches_match_jax(root, phase, workers):
 
 
 def test_loader_and_dataset_refuse_what_is_not_ported(root):
-    """The loader's per-host shard waits for the multi-GPU port; unknown
-    phases and datasets raise.  (The 3DMatch train phase and the ModelNet
-    and synthetic datasets are ported: tests/test_torch_train_data.py.)"""
+    """A shard whose rank is not below its world raises (the shards are
+    tests/test_torch_distributed.py's); unknown phases and datasets raise.
+    (The 3DMatch train phase and the ModelNet and synthetic datasets are
+    ported: tests/test_torch_train_data.py.)"""
     cfg = protocol_cfg(root)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        DataLoader([], 1, list, shard=(0, 2))
+    with pytest.raises(ValueError, match="rank not in"):
+        DataLoader([], 1, list, shard=(2, 2))
+    assert len(DataLoader(list(range(5)), 1, list, shard=(1, 2))) == 2
     with pytest.raises(ValueError, match="unknown phase"):
         get_dataset(cfg, "calibration")
     with pytest.raises(ValueError, match="unknown dataset"):

@@ -42,7 +42,9 @@ def test_port_imports_no_jax_flax_or_yaml():
         "regtr_tpu_torch.utils.xlsx, regtr_tpu_torch.utils.ply, "
         "regtr_tpu_torch.utils.viz, regtr_tpu_torch.data.calibrate, "
         "regtr_tpu_torch.evaluate_3dmatch, regtr_tpu_torch.calibrate, "
-        "regtr_tpu_torch.demo, regtr_tpu_torch.compute_overlap\n"
+        "regtr_tpu_torch.demo, regtr_tpu_torch.compute_overlap, "
+        "regtr_tpu_torch.parallel.dist, regtr_tpu_torch.utils.misc, "
+        "regtr_tpu_torch.utils.profiling\n"
         "from regtr_tpu_torch.config import threedmatch_config\n"
         "from regtr_tpu_torch.models import create_model\n"
         "create_model(threedmatch_config(first_feats_dim=16, d_embed=32, "
@@ -101,7 +103,8 @@ def test_port_sources_do_not_name_jax():
     sources = list((ROOT / "regtr_tpu_torch").rglob("*.py"))
     for module in ("ops/gather.py", "test.py", "evaluation.py", "demo.py",
                    "calibrate.py", "evaluate_3dmatch.py",
-                   "compute_overlap.py", "utils/viz.py", "data/calibrate.py"):
+                   "compute_overlap.py", "utils/viz.py", "data/calibrate.py",
+                   "parallel/dist.py", "utils/misc.py", "utils/profiling.py"):
         assert ROOT / "regtr_tpu_torch" / module in sources
     for path in sources:
         for line, root in _imported_roots(path):
