@@ -120,12 +120,27 @@ non-zero without one, and without the checkout beside it).  Phases:
    per step on both ranks), `python -m regtr_tpu_torch.test` on phase 7's
    parameters and root (the merged est.log holds phase 7's pairs, each
    pose bitwise) and phase 6's first step with one pair per rank (the
-   sum-reduced gradients within TOL_GRAD of phase 6's one-process step,
-   the all-reduce timed); (c) one step with remat off and on at the full
+   sum-reduced gradients bitwise-near one process on the ranks' shapes,
+   the all-reduce timed); the batch shape's spread (C1,
+   `batch_shape_study`: phase 6's first pair alone and twice in fp32, and
+   alone in float64, per leaf, per block, with the leaky ReLU slopes and
+   max-pool choices that differ), then the ranks' gradients per leaf
+   against phase 6's and a float64 step (C2), and the sampled circle loss
+   on the two ranks against one process (C3: each pair's samples bitwise);
+   (c) one step with remat off and on at the full
    width of conf/modelnet.yaml and of conf/3dmatch.yaml at bucket 24576:
    the gradients bitwise, the peak memory of each, each kernel launch of
    the remat step held to its plain version.  The ranks run this file as
-   `chip_smoke.py --rank-worker KIND OUT ARGS` (`rank_worker`).
+   `chip_smoke.py --rank-worker KIND OUT ARGS` (`rank_worker`);
+13. an upstream RegTR checkpoint: a state_dict in the reference's layout
+   at the full width of conf/3dmatch.yaml (numpy, seed 0, each block's
+   kernel points drawn in the unit ball), converted by `python -m
+   regtr_tpu_torch.convert_checkpoint` where JAX and PyYAML cannot be
+   imported, every parameter and disposition bitwise its source; `python
+   -m regtr_tpu_torch.test --params` on it over phase 7's root (launches
+   per pair, each of one pair's held to its plain version, pairs/s; the
+   unfused `kpconv` of a level-0 block bitwise the fused one); and
+   `--export` of phase 8's run, bitwise its restored model's parameters.
 
 It imports torch, numpy, scipy and regtr_tpu_torch, nothing of JAX.
 
@@ -2305,6 +2320,11 @@ def phase_trainer(trainer_shape):
         PHASE12.mkdir(parents=True, exist_ok=True)
         shutil.copy(logdir / "ckpt" / str(first) / "state.pt",
                     PHASE12 / "phase8_state.pt")
+        # phase 13 exports its checkpoints
+        shutil.rmtree(PHASE13 / "phase8_run", ignore_errors=True)
+        shutil.copytree(logdir, PHASE13 / "phase8_run",
+                        ignore=shutil.ignore_patterns("*.jsonl", "*.txt",
+                                                      "events.*"))
         saver = CheckpointManager(logdir / "ckpt")
         check(saver.all_steps() == [4, first]
               and saver.best_record() is not None,
@@ -3254,7 +3274,8 @@ def rank_worker(kind, out, *args):
     first step of phase 6's two-pair batch with one pair per rank over
     Gloo on cuda:0, writes its loss, a digest of its reduced gradients and
     the all-reduce's times to OUT/first_step_rank{r}.json and rank 0's
-    reduced gradients to OUT/first_step_dp_grads.pt.
+    reduced gradients to OUT/first_step_dp_grads.pt; then the sampled
+    circle loss on its pair (`sampled_draws`) to OUT/circle_rank{r}.pt.
     """
     sys.path.insert(0, str(ROOT))
     import torch
@@ -3318,8 +3339,47 @@ def rank_worker(kind, out, *args):
             "allreduce_ms": [x * 1e3 for x in times],
             "digest": float(sum(float(g.double().abs().sum())
                                 for g in grads))}))
+        del model, opt, losses, grads
+        torch.save(sampled_draws(cfg, batch, n0),
+                   out / f"circle_rank{rank}.pt")
     finally:
         dist.shutdown()
+
+
+def sampled_draws(cfg, batch, n0):
+    """C3: the sampled circle loss (`feature_loss_type: circle_sampled`)
+    of a model of cfg's widths from seed 0 on `batch`, forward and
+    backward: -> {'losses': the global losses, 'draws': every draw of the
+    sampler (idx_a, idx_b, valid) on the CPU, in order, 'launches'}."""
+    import torch
+
+    from regtr_tpu_torch.losses import feature
+    from regtr_tpu_torch.models import create_model
+    from regtr_tpu_torch.train import steps
+
+    model = create_model(dict(cfg, feature_loss_type="circle_sampled"), n0,
+                         batch["points"].device, seed=0)
+    draws, real = [], feature.sample_correspondences
+
+    def recorded(*args):
+        drawn = real(*args)
+        draws.append([t.cpu() for t in drawn])
+        return drawn
+
+    feature.sample_correspondences = recorded
+    before = _launch_counts()
+    try:
+        losses, _ = steps.forward_loss(model, batch)
+        torch.autograd.grad(losses["total"], list(model.parameters()),
+                            allow_unused=True)
+    finally:
+        feature.sample_correspondences = real
+    torch.cuda.synchronize()
+    return {"losses": {k: float(v.detach()) for k, v in
+                       steps.global_losses(losses).items()},
+            "draws": draws,
+            "launches": {k: v - before[k]
+                         for k, v in _launch_counts().items()}}
 
 
 def remat_steps(cfg, batch, what, runs=5):
@@ -3441,30 +3501,507 @@ def per_pair_step_grads(batch_np):
     return names, [a + b for a, b in zip(*grads)]
 
 
-def batch_shape_noise(batch_np):
-    """One process, phase 6's first pair: its first-step gradients alone
-    and in a batch of itself twice (the same loss: every numerator and
-    denominator doubles), as a list per parameter each."""
+C1_WORST = 6           # the leaves whose cancellation ratios are reported
+C1_APART = 2.0         # conditioning: alone and twice this near in distance
+C1_RATIO = 100.0       # ... and the worst leaves' sums cancel this much
+C2_FARTHER = 1.5       # C2: the ranks at most this much farther from fp64
+TOL_SAMPLED = 1e-5     # C3: the ranks' sampled circle losses, relative
+
+
+@contextlib.contextmanager
+def float64_for_float32():
+    """Inside, every float32 the port asks for is float64: `Tensor.float`
+    and `Tensor.to(float32)` give float64, and the factories asked for
+    float32 make float64.  The port casts to fp32 where it accumulates
+    (fp32 sums of bf16 operands); this runs the same code in fp64, on the
+    plain route (the kernels take fp32 and bf16 only).  A tensor that
+    stayed fp32 would meet an fp64 one in a product and raise."""
+    import torch
+
+    f32, f64 = torch.float32, torch.float64
+    real_float, real_to = torch.Tensor.float, torch.Tensor.to
+    names = ("zeros", "ones", "empty", "full", "arange", "tensor",
+             "as_tensor")
+    real = {n: getattr(torch, n) for n in names}
+
+    def to(self, *args, **kw):
+        args = tuple(f64 if a is f32 else a for a in args)
+        if kw.get("dtype") is f32:
+            kw["dtype"] = f64
+        return real_to(self, *args, **kw)
+
+    def factory(fn):
+        def make(*args, **kw):
+            if kw.get("dtype") is f32:
+                kw["dtype"] = f64
+            return fn(*args, **kw)
+        return make
+
+    torch.Tensor.float = lambda self, *a, **kw: real_to(self, f64)
+    torch.Tensor.to = to
+    for n, fn in real.items():
+        setattr(torch, n, factory(fn))
+    try:
+        yield
+    finally:
+        torch.Tensor.float, torch.Tensor.to = real_float, real_to
+        for n, fn in real.items():
+            setattr(torch, n, fn)
+
+
+def levels_as(levels, dtype=None, times=1):
+    """The pyramid's levels with their coordinates cast to `dtype` and
+    every field repeated `times` along the batch (a batch of the same
+    pairs `times` over, on the same tables)."""
+    import dataclasses
+
+    import torch
+
+    def one(x):
+        if x is None:
+            return None
+        if dtype is not None and x.is_floating_point():
+            x = x.to(dtype)
+        return torch.cat([x] * times) if times > 1 else x
+
+    return [dataclasses.replace(lvl, **{f.name: one(getattr(lvl, f.name))
+                                        for f in dataclasses.fields(lvl)})
+            for lvl in levels]
+
+
+def _cancellation(rows, grads):
+    """A weight gradient sum_r rows_r^T grads_r (rows (R, A), grads (R,
+    C)): the norm of its terms' absolute sum over the norm of the sum."""
+    rows, grads = rows.double(), grads.double()
+    return float((rows.abs().t() @ grads.abs()).norm()
+                 / (rows.t() @ grads).norm().clamp_min(1e-300))
+
+
+def recorded_first_step(model, levels, pose, overlap0, ratios=None):
+    """One first step on given levels (no update): -> (gradients per
+    parameter, zeros where unused; {encoder block: the gradient of its
+    output}).  With a dict `ratios`, the cancellation ratio
+    (`_cancellation`) of each backbone KPConv and Linear weight's gradient
+    is stored in it by parameter name."""
+    import torch
+
+    from regtr_tpu_torch.ops import kpconv
+
+    enc = model.kpf_encoder
+    names = {id(p): n for n, p in model.named_parameters()}
+    out_grads, handles = {}, []
+
+    def keep(store, key, fn=None):
+        def hook(g):
+            store[key] = g if fn is None else fn(g)
+        return hook
+
+    def on_block(name):
+        def hook(mod, args, out):
+            out.register_hook(keep(out_grads, name))
+        return hook
+
+    def on_linear(key):
+        def hook(mod, args, out):
+            x = args[0].reshape(-1, args[0].shape[-1])
+            out.register_hook(keep(ratios, key, lambda g: _cancellation(
+                x, g.reshape(-1, g.shape[-1]))))
+        return hook
+
+    for name in enc.block_names:
+        if hasattr(enc, name):
+            handles.append(getattr(enc, name).register_forward_hook(
+                on_block(name)))
+    real_apply = kpconv._apply_from_gathered
+    if ratios is not None:
+        for mname, mod in enc.named_modules():
+            if isinstance(mod, torch.nn.Linear):
+                handles.append(mod.register_forward_hook(
+                    on_linear(f"kpf_encoder.{mname}.weight")))
+
+        def apply(infl, inv_n, neighb_x, weights, compute_dtype,
+                  norm="valid"):
+            out = real_apply(infl, inv_n, neighb_x, weights, compute_dtype,
+                             norm)
+            if out.requires_grad and id(weights) in names:
+                rows = torch.einsum("bqkp,bqkc->bqpc", infl, neighb_x)
+                rows = rows.reshape(-1, rows.shape[-2] * rows.shape[-1])
+                out.register_hook(keep(ratios, names[id(weights)],
+                                       lambda g: _cancellation(
+                                           rows, g.reshape(-1, g.shape[-1])
+                                           * inv_n.reshape(-1, 1))))
+            return out
+
+        kpconv._apply_from_gathered = apply
+    try:
+        losses, _ = model.loss_levels(levels, pose, overlap0)
+        params = list(model.parameters())
+        grads = torch.autograd.grad(losses["total"], params,
+                                    allow_unused=True)
+    finally:
+        kpconv._apply_from_gathered = real_apply
+        for h in handles:
+            h.remove()
+    return ([torch.zeros_like(p) if g is None else g.detach()
+             for p, g in zip(params, grads)], out_grads)
+
+
+def fp64_first_step(model, levels, batch, ratios=None):
+    """`recorded_first_step` of a float64 copy of `model` on the plain
+    route, `levels` (built in fp32) and the batch cast to float64."""
+    import copy
+
+    import torch
+
+    model64 = copy.deepcopy(model).double()
+    try:
+        with kernel_route("plain"), float64_for_float32():
+            return recorded_first_step(
+                model64, levels_as(levels, torch.float64),
+                batch["pose"].double(), batch["overlap0"].double(), ratios)
+    finally:
+        del model64
+
+
+@contextlib.contextmanager
+def current_block(model):
+    """-> a one-item list holding the name of the encoder block that is
+    running its forward (None before the first)."""
+    enc, current, handles = model.kpf_encoder, [None], []
+    for name in enc.block_names:
+        if hasattr(enc, name):
+            handles.append(getattr(enc, name).register_forward_pre_hook(
+                lambda m, a, name=name: current.__setitem__(0, name)))
+    try:
+        yield current
+    finally:
+        for h in handles:
+            h.remove()
+
+
+@contextlib.contextmanager
+def discrete_choices(model, record, force=None):
+    """The encoder's points where the gradient jumps: each leaky ReLU's
+    sign pattern (its slope, 1 or 0.1, per element) and each strided
+    block's max pool's choice of neighbor (the argmax over the neighbors,
+    (B, Nq, C)), appended to `record` as (block, kind, choice) in call
+    order.  With `force`, such a record of another run whose choices were
+    tiled to this batch, each takes the recorded choice instead of its
+    own: the recorded slope, the recorded neighbor."""
+    import torch
+
+    from regtr_tpu_torch.nn import blocks
+    from regtr_tpu_torch.ops import kpconv
+
+    real_relu, real_fused = blocks.leaky_relu, blocks.kpconv_fused_gather
+
+    def relu(x):
+        record.append((current[0], "leaky relu", x.detach() > 0))
+        if force is None:
+            return real_relu(x)
+        return torch.where(force[len(record) - 1][2], x,
+                           blocks.LEAKY_SLOPE * x)
+
+    def fused(q_pts, s_pts, index, x, x_extra, *args, **kw):
+        if x_extra is None:
+            return real_fused(q_pts, s_pts, index, x, x_extra, *args, **kw)
+        padded = kpconv._pad_row(x_extra, 0.0)
+        rows = torch.stack([padded[b][index.inds[b]]
+                            for b in range(padded.shape[0])])
+        record.append((current[0], "max pool", rows.detach().argmax(dim=2)))
+        if force is None:
+            return real_fused(q_pts, s_pts, index, x, x_extra, *args, **kw)
+        out, _, geom = real_fused(q_pts, s_pts, index, x, None, *args, **kw)
+        choice = force[len(record) - 1][2]
+        return out, rows.gather(2, choice[:, :, None, :])[:, :, 0], geom
+
+    with current_block(model) as current:
+        blocks.leaky_relu, blocks.kpconv_fused_gather = relu, fused
+        try:
+            yield
+        finally:
+            blocks.leaky_relu, blocks.kpconv_fused_gather = (real_relu,
+                                                             real_fused)
+
+
+def batch_shape_study(batch_np):
+    """C1 (ROADMAP.md Queue C): phase 6's first pair at its bucket, three
+    first steps on one set of pyramid tables, built once in fp32: (i)
+    alone, fp32, and (ii) in a batch of itself twice, fp32 (the same loss:
+    every numerator and denominator doubles), both on the kernels; (iii)
+    alone in float64 on the plain route; and (ii') as (ii) on (i)'s
+    choices at the encoder's points where the gradient jumps
+    (`discrete_choices`: the leaky ReLU slopes, the max-pool neighbors).
+    Per leaf the distances, the worst leaves' cancellation ratios, per
+    encoder block the distance of its output gradient (twice: the sum over
+    the two copies), and the choices that differ between (i) and (ii) ->
+    a dict with the verdict, 'conditioning' or 'fault'."""
     import torch
 
     from regtr_tpu_torch.config import threedmatch_config
     from regtr_tpu_torch.models import create_model
     from regtr_tpu_torch.train import steps
-    from regtr_tpu_torch.train.optim import Optimizer
 
     cfg = threedmatch_config()
     model = create_model(cfg, batch_np["points"].shape[1], DEVICE, seed=0)
-    opt = Optimizer(model.parameters(), cfg)
-    pair = {k: batch_np[k][:1] if k == "pose" else batch_np[k][:2]
-            for k in steps.BATCH_KEYS}
-    out = []
-    for times in (1, 2):
-        batch = steps.batch_to_device(
-            {k: np.concatenate([v] * times) for k, v in pair.items()},
-            DEVICE)
-        losses, _ = steps.forward_loss(model, batch)
-        out.append(steps.backward(opt, losses["total"])[0])
-    return out
+    names = [n for n, _ in model.named_parameters()]
+    pair = steps.batch_to_device(
+        {k: batch_np[k][:1] if k == "pose" else batch_np[k][:2]
+         for k in steps.BATCH_KEYS}, DEVICE)
+    with torch.no_grad():
+        levels = model.preprocess(pair["points"], pair["mask"])
+    doubled = (levels_as(levels, times=2), torch.cat([pair["pose"]] * 2),
+               torch.cat([pair["overlap0"]] * 2))
+    chosen = {"alone": [], "twice": [], "forced": []}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with discrete_choices(model, chosen["alone"]):
+        alone, blocks_alone = recorded_first_step(
+            model, levels, pair["pose"], pair["overlap0"])
+    with discrete_choices(model, chosen["twice"]):
+        twice, blocks_twice = recorded_first_step(model, *doubled)
+    torch.cuda.synchronize()
+    fp32_s = time.perf_counter() - t
+    flips = {}
+    for (name, kind, a), (_, _, b) in zip(chosen["alone"], chosen["twice"]):
+        key = (name, kind)
+        flips[key] = flips.get(key, 0) + int((torch.cat([a, a]) != b).sum())
+    # (ii) once more, with (i)'s choices at every point where the gradient
+    # jumps
+    with discrete_choices(model, chosen["forced"], force=[
+            (n, k, torch.cat([c, c])) for n, k, c in chosen["alone"]]):
+        forced, _ = recorded_first_step(model, *doubled)
+    ratios = {}
+    t = time.perf_counter()
+    exact, blocks_exact = fp64_first_step(model, levels, pair, ratios)
+    torch.cuda.synchronize()
+    fp64_s = time.perf_counter() - t
+
+    def dist(a, b):
+        return float((a.double() - b.double()).norm()
+                     / b.double().norm().clamp_min(1e-300))
+
+    rows = [(dist(a, c), dist(b, c), dist(a, b), n, dist(a, f))
+            for n, a, b, c, f in zip(names, alone, twice, exact, forced)
+            if float(c.norm()) > 1e-6 and not n.endswith("k_proj.bias")]
+    worst = sorted(rows, key=lambda r: -r[2])[:C1_WORST]
+    median = [sorted(r[k] for r in rows)[len(rows) // 2] for k in (0, 1)]
+    # every leaf's distances, for a reader of the run's files
+    PHASE12.mkdir(parents=True, exist_ok=True)
+    (PHASE12 / "c1_leaves.json").write_text(json.dumps(
+        {n: {"i_iii": a, "ii_iii": b, "i_ii": c, "i_ii_forced": f,
+             "cancellation": ratios.get(n)} for a, b, c, n, f in rows},
+        indent=1))
+    log(f"C1 ({card_line()}): phase 6's first pair at bucket "
+        f"{batch_np['points'].shape[1]}, one set of fp32 tables; (i) alone "
+        f"and (ii) twice on the kernels ({fp32_s:.1f} s), (iii) alone in "
+        f"float64 on the plain route ({fp64_s:.1f} s); (ii') as (ii) on "
+        f"(i)'s leaky ReLU slopes and max-pool neighbors; relative L2 per "
+        f"leaf, the worst {C1_WORST} by (i)-(ii):")
+    for a, b, c, n, f in worst:
+        log(f"  {n}: (i)-(iii) {a:.3e}, (ii)-(iii) {b:.3e}, (i)-(ii) "
+            f"{c:.3e}, (i)-(ii') {f:.3e}; weight-sum cancellation ratio "
+            f"{ratios.get(n, float('nan')):.3e}")
+    spread = {}
+    for what, k in (("(i)-(iii)", 0), ("(ii)-(iii)", 1), ("(i)-(ii)", 2),
+                    ("(i)-(ii')", 4)):
+        vals = sorted(r[k] for r in rows)
+        spread[what] = (vals[len(vals) // 2], vals[-1])
+        log(f"  {what} over {len(rows)} leaves: median {spread[what][0]:.3e}, "
+            f"worst {spread[what][1]:.3e}")
+    parted = []
+    for name in model.kpf_encoder.block_names[::-1]:   # the backward's order
+        if name not in blocks_alone:
+            continue
+        g1, g3 = blocks_alone[name], blocks_exact[name]
+        n = g1.shape[0]
+        g2 = blocks_twice[name][:n] + blocks_twice[name][n:]
+        parted.append((name, dist(g1, g3), dist(g2, g3), dist(g1, g2)))
+        log(f"  block {name} output gradient: (i)-(iii) {parted[-1][1]:.3e}, "
+            f"(ii)-(iii) {parted[-1][2]:.3e}, (i)-(ii) {parted[-1][3]:.3e}")
+    # the first block, in the backward's order, whose output gradients of
+    # (i) and (ii) lie 10x farther apart than at the backbone's output
+    # (its gradient comes from the backward of the block after it)
+    first_parted = next((q[0] for q in parted
+                         if q[3] > 10 * max(parted[0][3], 1e-12)), None)
+    # conditioning: both routes as far from fp64, on the same leaves, and
+    # the function's own sensitivity: weight sums that cancel, or points
+    # where the gradient jumps, whose choices alone carry the spread
+    near = all(max(a, b) <= C1_APART * min(a, b) for a, b, *_ in worst)
+    same = all(a >= 10 * median[0] and b >= 10 * median[1]
+               for a, b, *_ in worst)
+    cancels = all(ratios.get(r[3], 0.0) >= C1_RATIO for r in worst)
+    forced_worst = max(r[4] for r in rows)
+    jumps = forced_worst <= 0.1 * worst[0][2]
+    verdict = ("conditioning" if near and same and (cancels or jumps)
+               else "fault")
+    flipped = {f"{n} {k}": v for (n, k), v in flips.items() if v}
+    n_choices = sum(c.numel() for *_, c in chosen["alone"])
+    log(f"C1: choices that differ between (i) and (ii): "
+        f"{flipped or 'none'} (of {n_choices} "
+        f"leaky ReLU elements and max-pool choices of (i)); on (i)'s choices "
+        f"(ii') lies {forced_worst:.3e} from (i) (worst leaf)")
+    log(f"C1: the first block whose output gradients part: "
+        f"{first_parted or 'none (the weight sums alone)'}; the worst "
+        f"leaves' (i) and (ii) as far from fp64 within {C1_APART}x: {near}; "
+        f"those leaves >= 10x the median leaf's distance in both: {same}; "
+        f"their weight sums' cancellation >= {C1_RATIO:g}: {cancels}; the "
+        f"jumps' choices carry the spread (10x less on (i)'s): {jumps} -> "
+        f"{verdict}")
+    return dict(verdict=verdict, worst=worst, first_parted=first_parted,
+                blocks=parted, fp32_s=fp32_s, fp64_s=fp64_s,
+                flips=flipped, forced_worst=forced_worst, spread=spread,
+                ratios={r[3]: ratios.get(r[3]) for r in worst})
+
+
+def grad_leaves(names, a, b):
+    """Relative L2 per leaf in float64 (the key biases aside: 0 in exact
+    arithmetic), worst first, and over all parameters as one vector."""
+    import torch
+
+    def dist(x, y):
+        x, y = x.detach().cpu().double(), y.detach().cpu().double()
+        return float((x - y).norm() / y.norm())
+
+    errs = sorted(((dist(x, y), n) for n, x, y in zip(names, a, b)
+                   if float(y.norm()) > 1e-6
+                   and not n.endswith("k_proj.bias")), reverse=True)
+    flat = dist(*(torch.cat([t.reshape(-1) for t in g]) for g in (a, b)))
+    return errs, flat
+
+
+def fp64_batch_grads(batch_np):
+    """The first step of phase 6's batch in float64 on the plain route
+    (`fp64_first_step`), its tables built in fp32: -> gradients."""
+    import torch
+
+    from regtr_tpu_torch.config import threedmatch_config
+    from regtr_tpu_torch.models import create_model
+    from regtr_tpu_torch.train import steps
+
+    model = create_model(threedmatch_config(), batch_np["points"].shape[1],
+                         DEVICE, seed=0)
+    batch = steps.batch_to_device(batch_np, DEVICE)
+    with torch.no_grad():
+        levels = model.preprocess(batch["points"], batch["mask"])
+    return fp64_first_step(model, levels, batch)[0]
+
+
+def phase12_first_step(result):
+    """Phase 12(b)'s first step: phase 6's batch with one pair per rank
+    over Gloo, held to one process on the ranks' shapes (bitwise-near,
+    TOL_GRAD per leaf) and to phase 6's batched step; C1 (the batch
+    shape's spread, `batch_shape_study`) decides how: a fault, TOL_GRAD
+    per leaf against phase 6's step; conditioning, both held to the
+    float64 step, each leaf of the ranks at most C2_FARTHER times as far
+    as phase 6's farthest leaf, and their median leaf ratio at most
+    C2_FARTHER.
+    C3: the ranks' sampled circle loss (`sampled_draws`) draws for each
+    pair what one process draws for it, bitwise, and its losses lie
+    within TOL_SAMPLED of one process's."""
+    import torch
+
+    from regtr_tpu_torch.config import threedmatch_config
+    from regtr_tpu_torch.train import steps
+
+    me = str(ROOT / "chip_smoke.py")
+    launch_ranks(2, [me, "--rank-worker", "first_step", str(PHASE12)],
+                 "(b) phase 6's first step, one pair per rank over Gloo")
+    res = [json.loads((PHASE12 / f"first_step_rank{r}.json").read_text())
+           for r in range(2)]
+    check(res[0]["digest"] == res[1]["digest"],
+          "(b) the two ranks' sum-reduced gradients equal")
+    batch_np = dict(np.load(PHASE12 / "first_step.npz"))
+    names, per_pair = per_pair_step_grads(batch_np)
+    ranks = torch.load(PHASE12 / "first_step_dp_grads.pt", weights_only=True)
+    batched = torch.load(PHASE12 / "first_step_grads.pt", weights_only=True)
+    errs, flat = grad_leaves(names, ranks, per_pair)
+    check(errs[0][0] < TOL_GRAD,
+          f"(b) the sum-reduced gradients of the two ranks (bucket "
+          f"{res[0]['n0']}, fp32) against one process's step on both pairs "
+          f"(one pair per forward, both pairs' denominators), leaf by leaf "
+          f"over {len(errs)} parameters (the key biases aside): worst rel L2 "
+          f"{errs[0][0]:.2e} ({errs[0][1]}; tol {TOL_GRAD}), all as one "
+          f"vector {flat:.2e}")
+    far = {what: grad_leaves(names, g, batched)
+           for what, g in (("ranks", ranks), ("one process", per_pair))}
+    log("(b) against phase 6's step on both pairs in one batch: "
+        + "; ".join(f"{what}: worst leaf {e[0][0]:.2e} ({e[0][1]}), median "
+                    f"{e[len(e) // 2][0]:.2e}, all as one vector {v:.2e}"
+                    for what, (e, v) in far.items()))
+    check(far["ranks"][1] <= TOL_GRAD
+          and far["ranks"][1] <= 1.01 * far["one process"][1],
+          f"(b) the ranks' gradients as one vector {far['ranks'][1]:.2e} "
+          f"from phase 6's batched step (tol {TOL_GRAD}), as far as one "
+          f"process's per-pair step ({far['one process'][1]:.2e})")
+
+    # -- C1, then C2: the per-leaf check its verdict calls for
+    c1 = batch_shape_study(batch_np)
+    if c1["verdict"] == "fault":
+        check(far["ranks"][0][0][0] < TOL_GRAD,
+              f"C2: the ranks' gradients against phase 6's batched step, "
+              f"leaf by leaf: worst {far['ranks'][0][0][0]:.2e} "
+              f"({far['ranks'][0][0][1]}; tol {TOL_GRAD})")
+        c2 = dict(worst=far["ranks"][0][0][0])
+    else:
+        exact = fp64_batch_grads(batch_np)
+        to_exact = {what: dict((n, e) for e, n in grad_leaves(
+            names, g, exact)[0]) for what, g in (("ranks", ranks),
+                                                 ("batched", batched))}
+        # a leaf's distance from fp64 is the jumps its route happened to
+        # take (C1: the leaky ReLU slopes that the last bits flip), and the
+        # two routes take different ones: a leaf of one may lie several
+        # times farther than the same leaf of the other.  So each leaf of
+        # the ranks is held to the spread the jumps give phase 6's step
+        # (its farthest leaf), and the ranks' typical leaf to phase 6's
+        ratios = sorted(to_exact["ranks"][n] / e
+                        for n, e in to_exact["batched"].items())
+        worst = {k: max(v.items(), key=lambda kv: kv[1])
+                 for k, v in to_exact.items()}
+        median = ratios[len(ratios) // 2]
+        log(f"C2: the ranks' and phase 6's batched gradients against the "
+            f"float64 step of phase 6's batch, per leaf over {len(ratios)} "
+            f"leaves: farthest leaf of the ranks {worst['ranks'][1]:.3e} "
+            f"({worst['ranks'][0]}), of phase 6's step "
+            f"{worst['batched'][1]:.3e} ({worst['batched'][0]}); ranks / "
+            f"phase 6 per leaf: median {median:.3f}, largest "
+            f"{ratios[-1]:.3f}")
+        check(worst["ranks"][1] <= C2_FARTHER * worst["batched"][1]
+              and median <= C2_FARTHER,
+              f"C2: every leaf of the ranks within {C2_FARTHER}x the "
+              f"farthest leaf of phase 6's step from the float64 step, and "
+              f"their typical leaf within {C2_FARTHER}x phase 6's (median "
+              f"ratio {median:.3f})")
+        c2 = dict(worst_ranks=worst["ranks"], worst_batched=worst["batched"],
+                  median_ratio=median, largest_ratio=ratios[-1])
+
+    # -- C3: the sampled circle loss, ranks against one process
+    cfg = threedmatch_config()
+    one = sampled_draws(cfg, steps.batch_to_device(batch_np, DEVICE),
+                        batch_np["points"].shape[1])
+    ranks_c = [torch.load(PHASE12 / f"circle_rank{r}.pt",
+                          weights_only=True) for r in range(2)]
+    same = all(len(rc["draws"]) == len(one["draws"]) > 0 and all(
+        torch.equal(g[0], w[r]) for got, want in zip(rc["draws"], one["draws"])
+        for g, w in zip(got, want)) for r, rc in enumerate(ranks_c))
+    n_valid = [int(d[2].all(dim=1).sum()) for d in one["draws"]]
+    check(same, f"C3: each rank's sampled indices for its pair bitwise one "
+          f"process's on the two-pair batch ({len(one['draws'])} draws of "
+          f"{one['draws'][0][0].shape[1]} per pair; pairs with candidates "
+          f"{n_valid})")
+    loss_err = max(abs(rc["losses"][k] - v) / max(abs(v), 1e-12)
+                   for rc in ranks_c for k, v in one["losses"].items())
+    check(loss_err <= TOL_SAMPLED,
+          f"C3: the ranks' global losses within {TOL_SAMPLED} (relative) of "
+          f"one process's: largest {loss_err:.2e}; launches per rank "
+          f"{ranks_c[0]['launches']}, one process {one['launches']}")
+    result["first_step"] = dict(
+        vs_one_process=errs[0][0], vs_batched=far["ranks"][0][0][0],
+        vs_batched_all=far["ranks"][1],
+        one_process_vs_batched=far["one process"][0][0][0],
+        c1=c1, c2=c2, c3=dict(loss_rel_err=loss_err,
+                              launches=one["launches"]))
+    return res
 
 
 def phase_data_parallel(trained):
@@ -3602,64 +4139,8 @@ def phase_data_parallel(trained):
           "0's benchmark report")
     result["b_protocol_pairs"] = n_pairs
 
-    # -- (b) the first step at full width, one pair per rank
-    launch_ranks(2, [me, "--rank-worker", "first_step", str(PHASE12)],
-                 "(b) phase 6's first step, one pair per rank over Gloo")
-    res = [json.loads((PHASE12 / f"first_step_rank{r}.json").read_text())
-           for r in range(2)]
-    check(res[0]["digest"] == res[1]["digest"],
-          "(b) the two ranks' sum-reduced gradients equal")
-    # phase 6's step holds both pairs in one batch; the ranks run one pair
-    # each, and the backbone's fp32 gradients move with a batch's shape
-    # (ROADMAP.md Queue C), so the ranks are held to one process that runs
-    # the ranks' shapes, and phase 6's step is the yardstick of both
-    names, per_pair = per_pair_step_grads(np.load(PHASE12 /
-                                                  "first_step.npz"))
-    ranks = torch.load(PHASE12 / "first_step_dp_grads.pt", weights_only=True)
-    batched = torch.load(PHASE12 / "first_step_grads.pt", weights_only=True)
-
-    def leaves(a, b):
-        """Relative L2 per leaf (the key biases aside: 0 in exact
-        arithmetic), worst first, and over all parameters as one vector."""
-        errs = sorted(((rel_l2(x.cpu(), y.cpu()), n) for n, x, y in zip(
-            names, a, b) if float(y.norm()) > 1e-6
-            and not n.endswith("k_proj.bias")), reverse=True)
-        flat = rel_l2(torch.cat([x.cpu().reshape(-1) for x in a]),
-                      torch.cat([y.cpu().reshape(-1) for y in b]))
-        return errs, flat
-
-    errs, flat = leaves(ranks, per_pair)
-    check(errs[0][0] < TOL_GRAD,
-          f"(b) the sum-reduced gradients of the two ranks (bucket "
-          f"{res[0]['n0']}, fp32) against one process's step on both pairs "
-          f"(one pair per forward, both pairs' denominators), leaf by leaf "
-          f"over {len(errs)} parameters (the key biases aside): worst rel L2 "
-          f"{errs[0][0]:.2e} ({errs[0][1]}; tol {TOL_GRAD}), all as one "
-          f"vector {flat:.2e}")
-    far = {what: leaves(g, batched) for what, g in (("ranks", ranks),
-                                                     ("one process",
-                                                      per_pair))}
-    alone, twice = batch_shape_noise(np.load(PHASE12 / "first_step.npz"))
-    noise, noise_all = leaves(twice, alone)
-    log(f"(b) the batch's shape alone (one process, phase 6's first pair "
-        f"in a batch of itself and of itself twice, the same loss): worst "
-        f"leaf {noise[0][0]:.2e} ({noise[0][1]}), median "
-        f"{noise[len(noise) // 2][0]:.2e}, all as one vector "
-        f"{noise_all:.2e}")
-    log("(b) against phase 6's step on both pairs in one batch: "
-        + "; ".join(f"{what}: worst leaf {e[0][0]:.2e} ({e[0][1]}), median "
-                    f"{e[len(e) // 2][0]:.2e}, all as one vector {v:.2e}"
-                    for what, (e, v) in far.items()))
-    check(far["ranks"][1] <= TOL_GRAD
-          and far["ranks"][1] <= 1.01 * far["one process"][1],
-          f"(b) the ranks' gradients as one vector {far['ranks'][1]:.2e} "
-          f"from phase 6's batched step (tol {TOL_GRAD}), as far as one "
-          f"process's per-pair step ({far['one process'][1]:.2e})")
-    result["first_step"] = dict(
-        vs_one_process=errs[0][0], vs_batched=far["ranks"][0][0][0],
-        vs_batched_all=far["ranks"][1],
-        one_process_vs_batched=far["one process"][0][0][0],
-        batch_shape=noise[0][0])
+    # -- (b) the first step at full width, one pair per rank; C1, C2, C3
+    res = phase12_first_step(result)
     ar = statistics.median(res[0]["allreduce_ms"])
     mib = res[0]["grad_bytes"] / 2**20
     log(f"(b) all-reduce of the step's gradients ({mib:.1f} MiB fp32, one "
@@ -3688,6 +4169,327 @@ def phase_data_parallel(trained):
         f"(c) remat on 3dmatch.yaml (fp32, bucket {REMAT_3DMATCH_BUCKET}, "
         f"phase 6's 2 pairs)")
     return result
+
+
+PHASE13 = ROOT / ".build" / "phase13"
+# the interpreter of phase 13's conversion: no JAX, flax, PyYAML or JAX
+# package importable, as on the machines the port runs on
+NO_JAX = ("import sys\n"
+          "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'yaml', "
+          "'regtr_tpu', 'tools'):\n"
+          "    sys.modules[name] = None\n"
+          "from regtr_tpu_torch.convert_checkpoint import main\n"
+          "main(sys.argv[1:])\n")
+
+
+def reference_state_dict(cfg, seed=0):
+    """A state_dict in upstream RegTR's layout (names and shapes) for the
+    model of `cfg`, drawn with numpy from `seed`: tests/test_converter.py's
+    scheme, with the deformable KPConv's offset branch and the attention
+    decoder head where cfg asks for them, and each KPConv's kernel_points
+    as the reference draws them: a disposition in the unit ball, its first
+    point at the centre (`fixed_kernel_points: center`), times the
+    block's radius."""
+    import torch
+
+    from regtr_tpu_torch.nn.backbone import encoder_out_dim, encoder_plan
+
+    rng = np.random.RandomState(seed)
+    sd = {}
+
+    def add(name, *shape):
+        sd[name] = torch.from_numpy(rng.randn(*shape).astype(np.float32)
+                                    * 0.1)
+
+    def kernel_points(name, radius):
+        p = cfg["num_kernel_points"]
+        u = rng.randn(p, 3)
+        u *= rng.rand(p, 1) ** (1.0 / 3.0) / np.linalg.norm(u, axis=1,
+                                                            keepdims=True)
+        u[0] = 0.0
+        sd[name] = torch.from_numpy((u * radius).astype(np.float32))
+
+    p = cfg["num_kernel_points"]
+    offset_dim = (3 + int(bool(cfg.get("modulated", False)))) * p
+    for i, (name, in_dim, out_dim, radius, _) in enumerate(
+            encoder_plan(cfg)[0]):
+        src = f"kpf_encoder.encoder_blocks.{i}"
+        if "simple" in name:
+            conv_in, conv_out = in_dim, out_dim // 2
+        elif "resnetb" in name:
+            mid = conv_in = conv_out = out_dim // 4
+            if in_dim != mid:
+                add(f"{src}.unary1.mlp.weight", mid, in_dim)
+        else:
+            continue
+        add(f"{src}.KPConv.weights", p, conv_in, conv_out)
+        kernel_points(f"{src}.KPConv.kernel_points", radius)
+        if "deform" in name:
+            add(f"{src}.KPConv.offset_conv.weights", p, conv_in, offset_dim)
+            kernel_points(f"{src}.KPConv.offset_conv.kernel_points", radius)
+            add(f"{src}.KPConv.offset_bias", offset_dim)
+        if "resnetb" in name:
+            add(f"{src}.unary2.mlp.weight", out_dim, mid)
+            if in_dim != out_dim:
+                add(f"{src}.unary_shortcut.mlp.weight", out_dim, in_dim)
+    d, ff = cfg["d_embed"], cfg["d_feedforward"]
+    add("feat_proj.weight", d, encoder_out_dim(cfg))
+    add("feat_proj.bias", d)
+    for layer in range(cfg["num_encoder_layers"]):
+        src = f"transformer_encoder.layers.{layer}"
+        for attn in ("self_attn", "multihead_attn"):
+            add(f"{src}.{attn}.in_proj_weight", 3 * d, d)
+            add(f"{src}.{attn}.in_proj_bias", 3 * d)
+            add(f"{src}.{attn}.out_proj.weight", d, d)
+            add(f"{src}.{attn}.out_proj.bias", d)
+        for lin, (o, i) in (("linear1", (ff, d)), ("linear2", (d, ff))):
+            add(f"{src}.{lin}.weight", o, i)
+            add(f"{src}.{lin}.bias", o)
+        for norm in ("norm1", "norm2", "norm3"):
+            add(f"{src}.{norm}.weight", d)
+            add(f"{src}.{norm}.bias", d)
+    add("transformer_encoder.norm.weight", d)
+    add("transformer_encoder.norm.bias", d)
+    dec = "correspondence_decoder"
+    if cfg.get("direct_regress_coor", True):
+        for j in (0, 2, 4):
+            add(f"{dec}.coor_mlp.{j}.weight", 3 if j == 4 else d, d)
+            add(f"{dec}.coor_mlp.{j}.bias", 3 if j == 4 else d)
+    else:
+        for proj in ("q_proj", "k_proj"):
+            add(f"{dec}.{proj}.weight", d, d)
+            add(f"{dec}.{proj}.bias", d)
+    add(f"{dec}.conf_logits_decoder.weight", 1, d)
+    add(f"{dec}.conf_logits_decoder.bias", 1)
+    add("feature_criterion.W", d, d)
+    add("feature_criterion_un.W", d, d)
+    return sd
+
+
+def phase_checkpoint():
+    """An upstream checkpoint on the card: a state_dict in the reference's
+    layout at the full width of conf/3dmatch.yaml, converted by `python -m
+    regtr_tpu_torch.convert_checkpoint` in an interpreter where JAX,
+    PyYAML and the JAX package cannot be imported; the loaded model's
+    parameters and dispositions bitwise their sources; `python -m
+    regtr_tpu_torch.test` on it over phase 7's root (launches per pair,
+    each of one pair's held to its plain version, the unfused KPConv);
+    and --export of phase 8's trainer checkpoint, bitwise
+    save_params_npz of the restored model."""
+    import torch
+
+    from regtr_tpu_torch.config import (dump_yaml_sections, load_config,
+                                        parse_yaml_sections)
+    from regtr_tpu_torch.convert import state_dict_from_reference
+    from regtr_tpu_torch.models import create_model
+    from regtr_tpu_torch.nn.blocks import KPConvLayer
+    from regtr_tpu_torch.train.checkpoints import load_params_npz
+
+    shipped = ROOT / "conf" / "3dmatch.yaml"
+    cfg = load_config(shipped)
+    shutil.rmtree(PHASE13 / "run", ignore_errors=True)
+    (PHASE13 / "run").mkdir(parents=True)
+    sd = reference_state_dict(cfg, seed=0)
+    n_params = sum(v.numel() for k, v in sd.items()
+                   if not k.endswith("kernel_points"))
+    ckpt = PHASE13 / "run" / "regtr.pth"
+    torch.save({"state_dict": sd}, ckpt)
+    log(f"== phase 13: an upstream checkpoint on the card (the reference's "
+        f"layout at the width of {shipped.name}: {len(sd)} tensors, "
+        f"{n_params / 1e6:.2f} M parameters, seed 0)")
+    npz, kp = PHASE13 / "run" / "params.npz", PHASE13 / "run" / "kp.npz"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", NO_JAX, str(ckpt), "--config", str(shipped),
+         "--out", str(npz), "--kernel_points", str(kp)], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT)), capture_output=True,
+        text=True, timeout=600)
+    convert_s = time.perf_counter() - t0
+    log(f"python -m regtr_tpu_torch.convert_checkpoint (jax, flax, yaml and "
+        f"regtr_tpu unimportable): exit {proc.returncode} in "
+        f"{convert_s:.1f} s (host clock, the interpreter's start included): "
+        + proc.stdout.strip().replace("\n", "; "))
+    if proc.returncode != 0:
+        log(proc.stdout[-4000:] + proc.stderr[-4000:])
+    check(proc.returncode == 0, "the conversion exits 0")
+
+    # the loaded model: every parameter and disposition bitwise its source
+    raw = parse_yaml_sections(shipped.read_text())
+    meta = ROOT / ".build" / "protocol" / "src" / "datasets" / "3dmatch"
+    raw["dataset"]["root"] = str(ROOT / ".build" / "protocol" / "data" /
+                                 "indoor")
+    raw["dataset"]["metadata_dir"] = str(meta)
+    raw["model"]["kernel_dispositions_file"] = str(kp)
+    config = PHASE13 / "run" / "3dmatch_converted.yaml"
+    config.write_text(dump_yaml_sections(raw))
+    cfg = load_config(config)
+    model = create_model(cfg, max(cfg["buckets"]), DEVICE, seed=1)
+    load_params_npz(npz, model)
+    mapped = state_dict_from_reference(sd, cfg)
+    got = model.state_dict()
+    direct = {"feat_proj.weight": sd["feat_proj.weight"],
+              "transformer_encoder.layer_0.cross_attn.k_proj.weight":
+              sd["transformer_encoder.layers.0.multihead_attn."
+                 "in_proj_weight"][cfg["d_embed"]:2 * cfg["d_embed"]],
+              "feature_criterion.W": sd["feature_criterion.W"]}
+    check(set(mapped) == set(got) and all(
+        torch.equal(got[k].cpu(), v) for k, v in mapped.items())
+          and all(torch.equal(got[k].cpu(), v) for k, v in direct.items()),
+          f"every one of the converted model's {len(got)} parameters "
+          f"bitwise its checkpoint tensor under the mapping (Linear weights "
+          f"in the reference's (out, in) layout, in_proj split in q, k, v)")
+    convs = [(name, m) for name, m in model.named_modules()
+             if isinstance(m, KPConvLayer)]
+    check(len(convs) == 11 and all(
+        torch.equal(m.kernel_points.cpu(), sd[
+            f"kpf_encoder.encoder_blocks.{m.block_index}.KPConv."
+            f"kernel_points"]) for _, m in convs),
+          f"each of the {len(convs)} blocks' kernel_points bitwise the "
+          f"checkpoint's, through kernel_dispositions_file")
+    result = converted_protocol(model, cfg, npz, config)
+    result.update(convert_s=convert_s, export_s=export_trainer_run(),
+                  parameters=n_params)
+    return result
+
+
+def converted_protocol(model, cfg, npz, config):
+    """Phase 13: `python -m regtr_tpu_torch.test --params` of the converted
+    checkpoint on phase 7's root, in-process: launches per pair, finite
+    poses, pairs/s; then one pair's launches held to their plain
+    versions."""
+    import torch
+
+    from regtr_tpu_torch import evaluation
+    from regtr_tpu_torch import test as test_cli
+    from regtr_tpu_torch.train.steps import make_forward
+
+    record = []
+    stages = dict.fromkeys(("forward", "est_log", "scorer", "run_test"), 0.0)
+    logs = PHASE13 / "run" / "test_logs"
+    torch.cuda.synchronize()
+    _zero_launch_counts()
+    # from the upstream working directory, where the GT trajectories'
+    # default place resolves (phase 7's command line runs there too)
+    try:
+        with timed_protocol(record, stages, also=[(evaluation,
+                                                   "run_test")]), \
+                contextlib.chdir(ROOT / ".build" / "protocol" / "src"):
+            test_cli.main(["--params", str(npz), "--config", str(config),
+                           "--benchmark", "3DMatch", "--logdir", str(logs),
+                           "--device", DEVICE, "--num_workers", "4"])
+    finally:
+        close_port_logger()
+    launches = _launch_counts()
+    n = len(record)
+    per_pair = {"flash_attn_fwd": 2 * cfg["num_encoder_layers"],
+                "row_gather": row_gathers_per_forward(cfg)}
+    check(n == PROTOCOL_SCENES * len(PROTOCOL_PAIRS["3DMatch"])
+          and launches == dict(dict.fromkeys(launches, 0), **{
+              k: v * n for k, v in per_pair.items()}),
+          f"python -m regtr_tpu_torch.test --params (converted) --benchmark "
+          f"3DMatch: {n} pairs, launches {launches} ({per_pair} a pair)")
+    poses = torch.stack([pose for *_, pose in record])
+    check(bool(torch.isfinite(poses).all()),
+          f"the converted model's {n} poses finite")
+    (logdir,) = logs.iterdir()
+    check((logdir / "benchmark_report.txt").exists(),
+          "its benchmark_report.txt written (random weights: recall "
+          "not checked)")
+    loop = stages["run_test"]
+    log(f"converted model, 3DMatch protocol ({card_line()}): {n} pairs, "
+        f"{n / loop:.3f} pairs/s over run_test (loading, forward, est.log, "
+        f"scorer; host clock), forward {stages['forward'] / n * 1e3:.1f} ms "
+        f"a pair")
+    points, mask, _ = record[0]
+    found = {}
+    before = _launch_counts()
+    with held_to_plain(found):
+        make_forward(model)(points, mask)
+    torch.cuda.synchronize()
+    used = {k: v - before[k] for k, v in _launch_counts().items()}
+    for (name, shape, dtype), (calls, err, ok) in sorted(found.items()):
+        log(f"  {name} {list(shape)} {dtype}: {calls} launches, largest "
+            f"|kernel - plain| {err:.3e}")
+    check(used == dict(dict.fromkeys(used, 0), **per_pair)
+          and all(ok for *_, ok in found.values())
+          and {k[0] for k in found} == set(per_pair),
+          f"each of one converted pair's {sum(per_pair.values())} launches "
+          f"within its tolerance of its plain version on the same inputs")
+    unfused_kpconv(model, points, mask)
+    return dict(launches=launches, launches_per_pair=per_pair, pairs=n,
+                pairs_per_s=n / loop)
+
+
+def unfused_kpconv(model, points, mask):
+    """The unfused KPConv (`kpconv`: `kpconv_geometry`, then
+    `kpconv_apply`) of the model's first level-0 resnet block, on the
+    pair's level-0 table and seeded features: bitwise the fused gather's
+    output on the same inputs, its coordinate and feature gathers two
+    launches of the row-gather kernel."""
+    import torch
+
+    from regtr_tpu_torch.ops import kpconv
+
+    enc = model.kpf_encoder
+    i, (name, *_) = next((i, b) for i, b in enumerate(enc.plan)
+                         if b[0] == "resnetb" and b[4] == 0)
+    layer = getattr(enc, f"block_{i}_{name}").kpconv
+    with torch.no_grad():
+        lvl = model.preprocess(points, mask)[0]
+        index = kpconv.GatherIndex(lvl.neighbors, lvl.points.shape[1] + 1)
+        gen = torch.Generator(device=lvl.points.device).manual_seed(0)
+        x = torch.randn(lvl.points.shape[:2] + layer.weights.shape[1:2],
+                        generator=gen, device=lvl.points.device)
+        args = (layer.kernel_points, layer.weights, layer.extent,
+                layer.influence, layer.aggregation, layer.compute_dtype)
+        before = _launch_counts()
+        got = kpconv.kpconv(lvl.points, lvl.points, index, x, *args,
+                            layer.norm)
+        torch.cuda.synchronize()
+        used = {k: v - before[k] for k, v in _launch_counts().items()}
+        want, _, _ = kpconv.kpconv_fused_gather(
+            lvl.points, lvl.points, index, x, None, *args, layer.norm)
+    check(torch.equal(got, want)
+          and used == dict(dict.fromkeys(used, 0), row_gather=2),
+          f"the unfused kpconv of block_{i}_{name} ({tuple(x.shape)} "
+          f"features, K {lvl.neighbors.shape[-1]}) bitwise the fused "
+          f"gather's, launches {used}")
+
+
+def export_trainer_run():
+    """Phase 13: `convert_checkpoint --export` of phase 8's run (without
+    JAX or PyYAML), bitwise save_params_npz of the model restored from its
+    best checkpoint; -> the command's seconds."""
+    from regtr_tpu_torch.config import load_config
+    from regtr_tpu_torch.models import create_model
+    from regtr_tpu_torch.train.checkpoints import (CheckpointManager,
+                                                   save_params_npz)
+
+    run8 = PHASE13 / "phase8_run"
+    out = PHASE13 / "run" / "exported.npz"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", NO_JAX, "--export", str(run8), "--out",
+         str(out)], cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+        capture_output=True, text=True, timeout=600)
+    export_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        log(proc.stdout[-4000:] + proc.stderr[-4000:])
+    check(proc.returncode == 0, f"--export of phase 8's run exits 0 in "
+          f"{export_s:.1f} s: {proc.stdout.strip()}")
+    cfg8 = load_config(run8 / "config.yaml")
+    restored = create_model(cfg8, max(cfg8["buckets"]), "cpu", seed=1)
+    step = CheckpointManager(run8 / "ckpt").restore(restored, best=True)
+    want = PHASE13 / "run" / "restored.npz"
+    save_params_npz(want, restored)
+    with np.load(out) as a, np.load(want) as b:
+        same = (sorted(a.files) == sorted(b.files) and all(
+            a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])
+            for k in a.files))
+        n_arrays = len(a.files)
+    check(same, f"--export's {n_arrays} arrays bitwise save_params_npz of "
+          f"phase 8's best checkpoint (step {step}) restored")
+    return export_s
 
 
 def main():
@@ -3733,6 +4535,11 @@ def main():
     timed("10", phase_tools, protocol)
     options = timed("11", phase_options)
     parallel = timed("12", phase_data_parallel, trained)
+    converted = timed("13", phase_checkpoint)
+    log(f"upstream checkpoint (phase 13): converted in "
+        f"{converted['convert_s']:.1f} s, exported in "
+        f"{converted['export_s']:.1f} s; the converted model's 3DMatch "
+        f"protocol {converted['pairs_per_s']:.3f} pairs/s")
     log(f"data parallel (phase 12): all-reduce "
         f"{parallel['allreduce_ms']:.1f} ms per step (Gloo, 2 ranks on one "
         f"card); at world size {parallel['a']['world']} a step "
@@ -3795,11 +4602,20 @@ def main():
                             "launches"][name] for route in ("off", "on")}
                         for what in ("modelnet", "3dmatch")})
 
+    def converted_launches(name):
+        """Phase 13's launches of a kernel: the converted checkpoint's
+        3DMatch protocol, over its pairs and per pair."""
+        return dict(converted_launches=converted["launches"][name],
+                    converted_pairs=converted["pairs"],
+                    converted_launches_per_pair=converted["launches"][name]
+                    / converted["pairs"])
+
     src = "regtr_tpu_torch/csrc/"
     log(json.dumps({"kernels": [
         dict(name="flash_attn_fwd", row="K1", route="cuda",
              **trainer_launches("flash_attn_fwd"),
              **modelnet_launches("flash_attn_fwd"),
+             **converted_launches("flash_attn_fwd"),
              source=src + "flash_attn_fwd.cu",
              replaces="regtr_tpu/ops/pallas/attention.py:49",
              launches=infer_launches["flash_attn_fwd"], forwards=forwards,
@@ -3843,6 +4659,7 @@ def main():
         dict(name="row_gather", row="K5a", route="cuda",
              **trainer_launches("row_gather"),
              **modelnet_launches("row_gather"),
+             **converted_launches("row_gather"),
              source=src + "gather.cu",
              replaces="tools/exp_pallas_gather.py:44",
              also_replaces=["tools/exp_pallas_gather.py:77",

@@ -8,6 +8,15 @@ from __future__ import annotations
 import torch
 
 
+def interleave_pairs(src: torch.Tensor, tgt: torch.Tensor,
+                     dim: int = 0) -> torch.Tensor:
+    """(B, ...) x2 -> (2B, ...) with each pair's clouds adjacent."""
+    stacked = torch.stack([src, tgt], dim=dim + 1)
+    shape = list(stacked.shape)
+    shape[dim:dim + 2] = [shape[dim] * 2]
+    return stacked.reshape(shape)
+
+
 def split_pairs(x: torch.Tensor, dim: int = 0):
     """(2B, ...) -> (src (B, ...), tgt (B, ...))."""
     shape = list(x.shape)

@@ -7,6 +7,36 @@ import torch
 _EPS = 1e-6
 
 
+def se3_init(rot: torch.Tensor | None = None,
+             trans: torch.Tensor | None = None) -> torch.Tensor:
+    """A (..., 3, 4) pose from a rotation (..., 3, 3) and/or a translation
+    (..., 3) or (..., 3, 1); the rotation defaults to the identity, the
+    translation to zero."""
+    if rot is None and trans is None:
+        raise ValueError("need rotation and/or translation")
+    if trans is not None and trans.shape[-1] != 1:
+        trans = trans[..., None]
+    if rot is not None and trans is not None:
+        return torch.cat([rot, trans], dim=-1)
+    if rot is None:
+        eye = torch.eye(3, dtype=trans.dtype, device=trans.device)
+        return torch.cat([eye.expand(trans.shape[:-2] + (3, 3)), trans],
+                         dim=-1)
+    return torch.cat([rot, rot.new_zeros(rot.shape[:-1] + (1,))], dim=-1)
+
+
+def se3_identity(batch_shape=(), dtype=torch.float32,
+                 device=None) -> torch.Tensor:
+    """Identity poses, (*batch_shape, 3, 4)."""
+    return torch.eye(3, 4, dtype=dtype, device=device).expand(
+        tuple(batch_shape) + (3, 4))
+
+
+def se3_rot_trans(pose: torch.Tensor):
+    """-> (rotation (..., 3, 3), translation (..., 3))."""
+    return pose[..., :3, :3], pose[..., :3, 3]
+
+
 def se3_cat(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Compose two poses: the result applies b, then a."""
     rot_a, trans_a = a[..., :3, :3], a[..., :3, 3:4]

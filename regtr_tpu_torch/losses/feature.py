@@ -127,26 +127,49 @@ def circle_loss(feats_a, feats_b, xyz_a, xyz_b, mask_a, mask_b, r_p, r_n,
                         pos_margin, neg_margin)
 
 
-def correspondence_seed(xyz: torch.Tensor, salt: int, rank: int = 0) -> int:
-    """A sampling seed from the bits of the fp32 sum of `xyz` and a salt,
-    as the JAX package folds them into its key (one host sync): sampling
-    is random across batches and repeatable on the same batch.
-
-    With several ranks `xyz` is this rank's shard and its rank is folded
-    in, so that two ranks holding equal shards draw different samples.
-    The JAX mesh seeds once from the global batch's sum and draws the
-    global batch's samples in one go; no rank can reproduce its share of
-    those draws, so the sampled loss of several ranks is not the one
-    process's on the concatenated batch (ROADMAP.md Queue C)."""
-    bits = struct.unpack("<i", struct.pack("<f", float(
-        xyz.sum(dtype=torch.float32))))[0]
-    seed = ((17 * 1_000_003 + bits) * 1_000_003 + int(salt)) % (2 ** 63)
-    if rank:
-        seed = (seed * 1_000_003 + int(rank)) % (2 ** 63)
-    return seed
+def correspondence_seed(xyz: torch.Tensor, salt: int) -> int:
+    """A sampling seed from the bits of the fp32 sum of one pair's points
+    `xyz` (N, 3) and a salt, as the JAX package folds them into its key:
+    sampling is random across batches and repeatable on the same pair.
+    The sum is taken on a host copy (one sync), so that it is the same
+    whatever batch, rank or device the pair came on."""
+    host = xyz.detach().to("cpu", torch.float32, copy=True)
+    bits = struct.unpack("<i", struct.pack("<f", float(host.sum())))[0]
+    return ((17 * 1_000_003 + bits) * 1_000_003 + int(salt)) % (2 ** 63)
 
 
-def sample_correspondences(generator, xyz_a, xyz_b, mask_a, mask_b, r_p,
+def pair_generators(xyz: torch.Tensor, salt: int):
+    """One generator per pair of xyz (B, N, 3), on its device, each seeded
+    from that pair's points alone (`correspondence_seed`).  A pair's
+    samples then depend on nothing but the pair and the salt: not on the
+    other pairs of its batch, nor on how a batch is split across ranks."""
+    return [torch.Generator(device=xyz.device).manual_seed(
+        correspondence_seed(x, salt)) for x in xyz]
+
+
+def _sample_pair(generator, xyz_a, xyz_b, mask_a, mask_b, r_p, n_sample):
+    """`sample_correspondences` for one pair: (Na, 3), (Nb, 3), (Na,),
+    (Nb,) -> (idx_a, idx_b, valid), (n_sample,) each."""
+    # fresh copies: a product may take another kernel for an operand at
+    # another alignment, and a pair's draws must not depend on where in a
+    # batch it sat
+    sqd = pairwise_sqdist(xyz_a.clone(), xyz_b.clone())
+    cand = (sqd < (r_p - 1e-3) ** 2) & mask_a[:, None] & mask_b[None, :]
+    na, nb = cand.shape
+    flat = cand.reshape(-1)
+    dev = flat.device
+    u = torch.rand(flat.shape, generator=generator, device=dev)
+    top_val, top_idx = torch.topk(torch.where(flat, u, -1.0), n_sample)
+    count = flat.sum()
+    r = torch.rand((n_sample,), generator=generator, device=dev)
+    nth = torch.minimum((r * count).long(), (count - 1).clamp_min(0))
+    idx_wr = torch.searchsorted(torch.cumsum(flat.long(), dim=0), nth + 1)
+    idx = torch.where(top_val >= 0.0, top_idx,
+                      idx_wr.clamp_max(na * nb - 1))
+    return idx // nb, idx % nb, (count > 0).expand(n_sample)
+
+
+def sample_correspondences(generators, xyz_a, xyz_b, mask_a, mask_b, r_p,
                            n_sample):
     """n_sample groundtruth correspondences per pair, drawn uniformly.
 
@@ -154,40 +177,31 @@ def sample_correspondences(generator, xyz_a, xyz_b, mask_a, mask_b, r_p,
     r_p - 1e-3.  Without replacement when a pair has at least n_sample of
     them (the n_sample largest of a uniform draw per candidate), else with
     replacement (each slot a uniform draw over the candidates), as the JAX
-    package samples.  The draws come from `generator`, on the points'
-    device.  Returns (idx_a, idx_b, valid): (B, n_sample) each; `valid` is
-    False for pairs with no candidate (their indices are arbitrary).
+    package samples.  Pair i draws alone, from `generators[i]` (one per
+    pair, on the points' device; `pair_generators`), so its samples do not
+    depend on the rest of the batch.  Returns (idx_a, idx_b, valid):
+    (B, n_sample) each; `valid` is False for pairs with no candidate
+    (their indices are arbitrary).
     """
-    sqd = pairwise_sqdist(xyz_a, xyz_b)
-    cand = ((sqd < (r_p - 1e-3) ** 2) & mask_a[:, :, None]
-            & mask_b[:, None, :])
-    b, na, nb = cand.shape
-    flat = cand.reshape(b, na * nb)
-    dev = flat.device
-    u = torch.rand(flat.shape, generator=generator, device=dev)
-    top_val, top_idx = torch.topk(torch.where(flat, u, -1.0), n_sample,
-                                  dim=-1)
-    count = flat.sum(dim=-1, keepdim=True)                   # (B, 1)
-    r = torch.rand((b, n_sample), generator=generator, device=dev)
-    nth = torch.minimum((r * count).long(), (count - 1).clamp_min(0))
-    idx_wr = torch.searchsorted(torch.cumsum(flat.long(), dim=-1), nth + 1)
-    idx = torch.where(top_val >= 0.0, top_idx,
-                      idx_wr.clamp_max(na * nb - 1))
-    valid = (count > 0).expand(b, n_sample)
-    return idx // nb, idx % nb, valid
+    if len(generators) != xyz_a.shape[0]:
+        raise ValueError(f"{len(generators)} generators for "
+                         f"{xyz_a.shape[0]} pairs")
+    drawn = [_sample_pair(g, *args, r_p, n_sample) for g, *args in zip(
+        generators, xyz_a, xyz_b, mask_a, mask_b)]
+    return tuple(torch.stack(t) for t in zip(*drawn))
 
 
 def circle_loss_sampled(feats_a, feats_b, xyz_a, xyz_b, mask_a, mask_b,
-                        r_p, r_n, generator, n_sample=256, log_scale=10.0,
+                        r_p, r_n, generators, n_sample=256, log_scale=10.0,
                         pos_margin=0.1, neg_margin=1.4,
                         dist_type="euclidean"):
     """Circle loss on n_sample sampled groundtruth correspondences per
-    pair (`sample_correspondences`, drawn from `generator`): the
+    pair (`sample_correspondences`, pair i drawn from `generators[i]`): the
     (n_sample, n_sample) distance matrices of the sampled points.  Shapes
     as `circle_loss`.  The sampled rows are taken by `batched_row_gather`
     (the row-gather kernel forward, the gather transpose backward)."""
     idx_a, idx_b, valid = sample_correspondences(
-        generator, xyz_a, xyz_b, mask_a, mask_b, r_p, n_sample)
+        generators, xyz_a, xyz_b, mask_a, mask_b, r_p, n_sample)
     index_a = GatherIndex(idx_a, xyz_a.shape[1])
     index_b = GatherIndex(idx_b, xyz_b.shape[1])
     fa = batched_row_gather(feats_a.float().contiguous(), index_a)

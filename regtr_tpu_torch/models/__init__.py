@@ -22,6 +22,19 @@ from .regtr import RegTR
 _MODELS = {"regtr.RegTR": RegTR, "RegTR": RegTR}
 
 
+def register_model(name: str, cls):
+    """Make `cls` the model that cfg['model'] == name builds."""
+    _MODELS[name] = cls
+
+
+def get_model(name: str):
+    """The model class registered under `name`."""
+    if name not in _MODELS:
+        raise ValueError(f"unknown model {name!r}; available: "
+                         f"{sorted(_MODELS)}")
+    return _MODELS[name]
+
+
 def init_parameters(model: nn.Module, generator: torch.Generator):
     """Seeded init with flax's defaults: Dense kernels lecun-normal
     (truncated at 2 std), biases zero, LayerNorm scale one, KPConv weights
@@ -62,10 +75,7 @@ def init_parameters(model: nn.Module, generator: torch.Generator):
 def create_model(cfg, n0_capacity: int, device, seed: int = 0) -> RegTR:
     """Build the model named by cfg['model'] for `n0_capacity` input points
     per cloud, on `device`, with parameters drawn from `seed`."""
-    name = cfg.get("model", "regtr.RegTR")
-    if name not in _MODELS:
-        raise ValueError(f"unknown model {name!r}; available: "
-                         f"{sorted(_MODELS)}")
+    cls = get_model(cfg.get("model", "regtr.RegTR"))
     spec = make_pyramid_spec(cfg, n0_capacity)
     # TF32 off, process-wide, for every route through the model: the
     # neighbor search expands |q|^2 - 2 q.s + |s|^2, which cancels badly and
@@ -74,7 +84,7 @@ def create_model(cfg, n0_capacity: int, device, seed: int = 0) -> RegTR:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     with torch.device("meta"):
-        model = _MODELS[name](cfg, spec)
+        model = cls(cfg, spec)
     model.to_empty(device=torch.device(device))
     for m in model.modules():
         if isinstance(m, KPConvLayer):

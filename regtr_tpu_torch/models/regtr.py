@@ -15,8 +15,9 @@ Randomness is explicit, as in the JAX package's `apply(..., rngs=...)`: a
 call that is not deterministic with `dropout` > 0 needs a
 `torch.Generator` on the model's device for its dropout masks, and raises
 without one (JAX raises for a missing 'dropout' rng).  The sampled circle
-loss seeds its own generator from the batch (losses/feature.py
-`correspondence_seed`), as JAX derives its key from it.
+loss seeds one generator per pair from that pair's points
+(losses/feature.py `pair_generators`), as JAX derives its key from the
+batch, so that a pair draws the same samples on any rank.
 
 With several ranks (parallel/dist.py) `compute_loss` is a collective: its
 losses are this rank's share of the global batch's, each over the global
@@ -33,7 +34,7 @@ from ..core.pairs import split_pairs
 from ..core.se3 import compute_rigid_transform, se3_inv, se3_transform
 from ..losses.corr import corr_loss
 from ..losses.feature import (InfoNCELoss, circle_loss, circle_loss_sampled,
-                              correspondence_seed)
+                              pair_generators)
 from ..losses.overlap import overlap_loss
 from ..nn.backbone import KPFEncoder, encoder_out_dim
 from ..nn.blocks import compute_dtype
@@ -42,7 +43,6 @@ from ..nn.pos_embed import (PositionEmbeddingCoordsSine,
                              PositionEmbeddingLearned)
 from ..nn.transformer import TransformerCrossEncoder
 from ..ops.pyramid import PyramidSpec, build_pyramid, compute_overlap_pyramid
-from ..parallel import dist
 
 
 class RegTR(nn.Module):
@@ -222,10 +222,9 @@ class RegTR(nn.Module):
             if feat_type == "infonce":
                 return criterion(*args)
             if feat_type == "circle_sampled":
-                gen = torch.Generator(device=src_kp.device).manual_seed(
-                    correspondence_seed(src_kp_gt_warped, salt, dist.rank()))
                 return circle_loss_sampled(
-                    *args, cfg["r_p"], cfg["r_n"], gen,
+                    *args, cfg["r_p"], cfg["r_n"],
+                    pair_generators(src_kp_gt_warped, salt),
                     n_sample=int(cfg.get("circle_n_sample", 256)))
             return circle_loss(*args, cfg["r_p"], cfg["r_n"])
 

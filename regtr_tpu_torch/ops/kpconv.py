@@ -303,6 +303,17 @@ def _pad_row(x: torch.Tensor, value: float) -> torch.Tensor:
     return torch.cat([x, pad], dim=1)
 
 
+def _neighbor_offsets(q_pts, s_pts, index: GatherIndex) -> torch.Tensor:
+    """(B, Nq, K, 3) neighbor-minus-query offsets in fp32, the neighbors'
+    coordinates by one row gather over the table of `index` (shadow rows
+    at SHADOW_COORD).  Coordinates are data: no gradient flows to them."""
+    b, nq, k = index.inds.shape
+    neighbors = batched_row_gather(
+        _pad_row(s_pts.to(torch.float32), SHADOW_COORD), index
+    ).reshape(b, nq, k, 3)
+    return (neighbors - q_pts.to(torch.float32)[:, :, None, :]).detach()
+
+
 def _influence_from_rel(rel, neighb_inds, ns, kernel_pts, kp_extent,
                         influence="linear", aggregation="sum",
                         compute_dtype=None):
@@ -359,6 +370,20 @@ def _apply_from_gathered(infl, inv_n_valid, neighb_x, weights, compute_dtype,
     return out * inv_n_valid[..., None]
 
 
+def kpconv_geometry(q_pts, s_pts, index: GatherIndex, kernel_pts,
+                    kp_extent: float, influence: str = "linear",
+                    aggregation: str = "sum", compute_dtype=None):
+    """The neighborhood geometry that every KPConv block at one table
+    shares: q_pts (B, Nq, 3), s_pts (B, Ns, 3), `index` the (B, Nq, K)
+    table over Ns + 1 rows per cloud (shadow = Ns), kernel_pts (P, 3) ->
+    (infl (B, Nq, K, P), inv_n_valid (B, Nq) fp32).  The coordinate
+    gather is the row-gather kernel on CUDA tensors."""
+    return _influence_from_rel(_neighbor_offsets(q_pts, s_pts, index),
+                               index.inds, s_pts.shape[1], kernel_pts,
+                               kp_extent, influence, aggregation,
+                               compute_dtype)
+
+
 def kpconv_apply(infl, inv_n_valid, index: GatherIndex, x, weights,
                  compute_dtype=None, norm: str = "valid"):
     """Feature path of KPConv given precomputed geometry -> (B, Nq, Cout).
@@ -387,6 +412,19 @@ def kpconv_apply(infl, inv_n_valid, index: GatherIndex, x, weights,
                                 compute_dtype, norm)
 
 
+def kpconv(q_pts, s_pts, index: GatherIndex, x, kernel_pts, weights,
+           kp_extent: float, influence: str = "linear",
+           aggregation: str = "sum", compute_dtype=None,
+           norm: str = "valid"):
+    """KPConv in two steps, `kpconv_geometry` then `kpconv_apply` ->
+    (B, Nq, Cout).  The blocks take `kpconv_fused_gather`, which gathers
+    a table's features once for the convolution and the shortcut."""
+    infl, inv_n = kpconv_geometry(q_pts, s_pts, index, kernel_pts,
+                                  kp_extent, influence, aggregation,
+                                  compute_dtype)
+    return kpconv_apply(infl, inv_n, index, x, weights, compute_dtype, norm)
+
+
 def kpconv_fused_gather(q_pts, s_pts, index: GatherIndex, x, x_extra,
                         kernel_pts, weights, kp_extent: float,
                         influence: str = "linear", aggregation: str = "sum",
@@ -401,9 +439,7 @@ def kpconv_fused_gather(q_pts, s_pts, index: GatherIndex, x, x_extra,
     Returns (conv_out (B, Nq, Cout), maxpool_out (B, Nq, Ce) or None,
              (infl, inv_n_valid) for reuse by later blocks at this level).
     """
-    b, ns, _ = s_pts.shape
-    neighb_inds = index.inds
-    _, nq, k = neighb_inds.shape
+    b, nq, k = index.inds.shape
     cin = x.shape[-1]
     gdtype = compute_dtype if compute_dtype is not None else x.dtype
 
@@ -412,14 +448,9 @@ def kpconv_fused_gather(q_pts, s_pts, index: GatherIndex, x, x_extra,
         feats = torch.cat([feats, x_extra.to(gdtype)], dim=-1)
     g = batched_row_gather_padded(_pad_row(feats, 0.0), index)
     g = g.reshape(b, nq, k, feats.shape[-1])
-    neighbors = batched_row_gather(
-        _pad_row(s_pts.to(torch.float32), SHADOW_COORD), index
-    ).reshape(b, nq, k, 3)
-
-    rel = neighbors - q_pts.to(torch.float32)[:, :, None, :]
-    infl, inv_n = _influence_from_rel(rel, neighb_inds, ns, kernel_pts,
-                                      kp_extent, influence, aggregation,
-                                      compute_dtype)
+    infl, inv_n = kpconv_geometry(q_pts, s_pts, index, kernel_pts,
+                                  kp_extent, influence, aggregation,
+                                  compute_dtype)
     out = _apply_from_gathered(infl, inv_n, g[..., :cin], weights,
                                compute_dtype, norm)
     # Shadow rows gathered zeros, matching max_pool's zero pad row.
@@ -487,10 +518,7 @@ def kpconv_deformable(q_pts, s_pts, index: GatherIndex, x, kernel_pts,
     modulations = 2.0 * torch.sigmoid(off[..., 3 * p:]) if modulated else None
     deformed_kp = kernel_pts.float() + offsets                # (B,Nq,P,3)
 
-    neighbors = batched_row_gather(
-        _pad_row(s_pts.to(torch.float32), SHADOW_COORD), index
-    ).reshape(b, nq, k, 3)
-    rel = (neighbors - q_pts.to(torch.float32)[:, :, None, :]).detach()
+    rel = _neighbor_offsets(q_pts, s_pts, index)
     if compute_dtype is not None:
         rel = rel.to(compute_dtype)
         deformed_kp = deformed_kp.to(compute_dtype)

@@ -39,9 +39,10 @@ def parse_args(argv=None):
                    help="Run directory or checkpoint directory of the "
                         "port's trainer, or a flat .npz")
     p.add_argument("--params", type=str, default=None,
-                   help="Flat .npz params (save_params_npz, or "
-                        "tools/convert_torch_ckpt.py); alternative to "
-                        "--resume")
+                   help="Flat .npz params (save_params_npz, or an "
+                        "upstream checkpoint through python -m "
+                        "regtr_tpu_torch.convert_checkpoint); alternative "
+                        "to --resume")
     p.add_argument("--benchmark", type=str, default="3DMatch",
                    choices=["3DMatch", "3DLoMatch", "ModelNet", "ModelLoNet"])
     p.add_argument("--logdir", type=str, default="../logs")

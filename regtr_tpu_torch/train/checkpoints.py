@@ -17,8 +17,9 @@ files are on disk, then reads the directory again), and every rank can
 restore, onto its own device.
 
 The .npz archive holds one array per parameter under JAX's 'a/b/c' keys
-(the format tools/convert_torch_ckpt.py writes too), so the JAX package and
-the port read each other's files.
+(the format tools/convert_torch_ckpt.py and python -m
+regtr_tpu_torch.convert_checkpoint write too), so the JAX package and the
+port read each other's files.
 """
 from __future__ import annotations
 

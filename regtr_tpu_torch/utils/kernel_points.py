@@ -14,6 +14,8 @@ from functools import lru_cache
 
 import numpy as np
 
+from .ply import read_ply_xyz, write_ply
+
 
 def _sample_ball(rng, n, dim):
     """Uniform samples in the unit ball."""
@@ -138,10 +140,23 @@ def load_kernel_points(radius: float, num_points: int, dim: int = 3,
     return disp * np.float32(radius)
 
 
+def write_dispositions_ply(path, dispositions: np.ndarray):
+    """Write a (K, 3) disposition in the reference's cache format
+    (kernels/dispositions/k_XXX_<fixed>_3D.ply)."""
+    write_ply(path, [np.asarray(dispositions, np.float32)], ["x", "y", "z"])
+
+
+def read_dispositions_ply(path) -> np.ndarray:
+    """A disposition cached by the reference, or written above: (K, 3)
+    float32."""
+    return np.asarray(read_ply_xyz(path), np.float32)
+
+
 @lru_cache(maxsize=4)
 def _load_disposition_npz(path: str):
     """Per-block kernel dispositions exported from a reference (PyTorch)
-    checkpoint (keys like 'kpf_encoder.encoder_blocks.3.KPConv.
+    checkpoint by `python -m regtr_tpu_torch.convert_checkpoint
+    --kernel_points` (keys like 'kpf_encoder.encoder_blocks.3.KPConv.
     kernel_points'), stored already scaled by each block's radius."""
     with np.load(path) as data:
         return {k: np.asarray(data[k], np.float32) for k in data.files}

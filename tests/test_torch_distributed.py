@@ -67,8 +67,29 @@ def step_outputs(model, optimizer, cfg, batch):
                                              per_pair=True)}
 
 
+def recorded_samples(cfg, batch):
+    """The sampled circle loss's global losses on `batch` from a model of
+    SEED, and every draw of its sampler (idx_a, idx_b, valid), in order."""
+    from regtr_tpu_torch.losses import feature
+
+    draws = []
+    real = feature.sample_correspondences
+
+    def recorded(*args):
+        draws.append(real(*args))
+        return draws[-1]
+
+    model = create_model(cfg, N0, "cpu", seed=SEED)
+    feature.sample_correspondences = recorded
+    try:
+        losses, _ = model.compute_loss(batch["points"], batch["mask"],
+                                       batch["pose"], batch["overlap0"])
+    finally:
+        feature.sample_correspondences = real
+    return global_losses(losses), draws
+
+
 def scenario_step(args, r):
-    from regtr_tpu_torch.losses.feature import correspondence_seed
     from regtr_tpu_torch.train.logging_utils import StatsMeter
     from regtr_tpu_torch.train.trainer import Trainer
 
@@ -99,14 +120,10 @@ def scenario_step(args, r):
     res["averages"] = Trainer._global_averages(meters)
     res["ragged"] = dist.allgather_ragged(np.arange(3 * r + 1.0) + 10 * r)
 
-    # the sampled circle loss: each rank seeds from its shard and its rank
-    circle = dict(cfg, feature_loss_type="circle_sampled",
-                  circle_n_sample=32)
-    cmodel = create_model(circle, N0, "cpu", seed=SEED)
-    losses, _ = cmodel.compute_loss(batch["points"], batch["mask"],
-                                    batch["pose"], batch["overlap0"])
-    res["circle_losses"] = global_losses(losses)
-    res["seed"] = correspondence_seed(batch["points"][0], 1, r)
+    # the sampled circle loss: each pair draws from its own generator
+    res["circle_losses"], res["circle_draws"] = recorded_samples(
+        dict(cfg, feature_loss_type="circle_sampled", circle_n_sample=32),
+        batch)
     return res
 
 
@@ -326,30 +343,24 @@ def test_validation_averages_combine_as_jax(steps):
         np.testing.assert_array_equal(res["ragged"], np.concatenate(
             [np.arange(3 * r + 1.0) + 10 * r for r in range(WORLD)]))
 
-def test_sampled_circle_loss_seeds_by_rank(steps):
-    """The sampled circle loss on two ranks: each rank seeds from its
-    own shard with its rank folded in (rank 0's seed is the one
-    process's), so the feature terms differ from one process's on the
-    concatenated batch (ROADMAP.md Queue C), while the other terms
-    agree."""
-    from regtr_tpu_torch.losses.feature import correspondence_seed
-
+def test_sampled_circle_loss_matches_one_process(steps):
+    """The sampled circle loss on two ranks: each pair draws alone, from a
+    generator seeded from its own points, so every rank draws for its pair
+    the samples one process draws for that pair on the concatenated
+    batch, bitwise, and every term is the one process's."""
     cfg = dict(steps["cfg"], feature_loss_type="circle_sampled",
                circle_n_sample=32)
-    batch = steps["batch"]
-    model = create_model(cfg, N0, "cpu", seed=SEED)
-    one, _ = model.compute_loss(batch["points"], batch["mask"],
-                                batch["pose"], batch["overlap0"])
-    a, b = (r["circle_losses"] for r in steps["ranks"])
-    for k, v in one.items():
-        assert torch.equal(a[k], b[k]), k
-        if k.startswith("feature"):
-            assert rel_l2(a[k], v.detach()) > 1e-3, k
-        elif k != "total":
-            assert rel_l2(a[k], v.detach()) <= GRAD_TOL, k
-    pts = batch["points"]
-    assert steps["ranks"][0]["seed"] == correspondence_seed(pts[0], 1)
-    assert steps["ranks"][1]["seed"] != correspondence_seed(pts[2], 1)
+    one, one_draws = recorded_samples(cfg, steps["batch"])
+    assert len(one_draws) == 2          # feature_{last layer}, feature_un
+    for r, res in enumerate(steps["ranks"]):
+        assert len(res["circle_draws"]) == len(one_draws)
+        for got, want in zip(res["circle_draws"], one_draws):
+            assert got[2].all()         # every pair has candidates
+            for g, w in zip(got, want):
+                assert torch.equal(g[0], w[r])
+        assert res["circle_losses"].keys() == one.keys()
+        for k, v in one.items():
+            assert rel_l2(res["circle_losses"][k], v.detach()) <= GRAD_TOL, k
 
 @pytest.mark.parametrize("phase", ["train", "val"])
 @pytest.mark.parametrize("items", [7, 8])

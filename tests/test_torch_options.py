@@ -186,7 +186,9 @@ def test_sampled_circle_core_matches_jax():
 def test_sampler_contract():
     """Without replacement when a pair has enough candidates, with it when
     it has fewer; every sample a true candidate; `valid` False on a pair
-    with none; repeatable with one seed, another seed draws others."""
+    with none; repeatable with one seed, another seed draws others; a
+    pair's draws its own (one generator per pair: the same alone as in a
+    batch)."""
     _, _, xa, xb, ma, mb = circle_inputs(4, n=30)
     xa, xb = torch.from_numpy(xa), torch.from_numpy(xb)
     ma, mb = torch.from_numpy(ma), torch.from_numpy(mb)
@@ -197,9 +199,11 @@ def test_sampler_contract():
     n_cand = int(cand[0].sum())
     assert 10 < n_cand
 
-    def draw(seed, n):
+    def draw(seed, n, pairs=slice(None)):
         return feature.sample_correspondences(
-            torch.Generator().manual_seed(seed), xa, xb, ma, mb, r_p, n)
+            [torch.Generator().manual_seed(seed + i)
+             for i in range(len(xa))][pairs],
+            xa[pairs], xb[pairs], ma[pairs], mb[pairs], r_p, n)
 
     ia, ib, valid = draw(0, 10)
     assert valid[0].all() and not valid[1].any()
@@ -214,6 +218,10 @@ def test_sampler_contract():
     assert cand[0, ia[0], ib[0]].all()
     pairs = list(zip(ia[0].tolist(), ib[0].tolist()))
     assert len(set(pairs[:n_cand])) == n_cand == len(set(pairs))
+    # pair 0 drawn alone draws what it drew in the batch
+    alone = draw(0, 10, slice(0, 1))
+    for a, b in zip(alone, draw(0, 10)):
+        assert torch.equal(a[0], b[0])
 
 
 def test_dropout_function():

@@ -44,7 +44,10 @@ def test_port_imports_no_jax_flax_or_yaml():
         "regtr_tpu_torch.evaluate_3dmatch, regtr_tpu_torch.calibrate, "
         "regtr_tpu_torch.demo, regtr_tpu_torch.compute_overlap, "
         "regtr_tpu_torch.parallel.dist, regtr_tpu_torch.utils.misc, "
-        "regtr_tpu_torch.utils.profiling\n"
+        "regtr_tpu_torch.utils.profiling, "
+        "regtr_tpu_torch.convert_checkpoint, regtr_tpu_torch.core.masking, "
+        "regtr_tpu_torch.core.pairs, regtr_tpu_torch.core.se3, "
+        "regtr_tpu_torch.utils.kernel_points\n"
         "from regtr_tpu_torch.config import threedmatch_config\n"
         "from regtr_tpu_torch.models import create_model\n"
         "create_model(threedmatch_config(first_feats_dim=16, d_embed=32, "
@@ -74,6 +77,9 @@ def test_port_imports_no_jax_flax_or_yaml():
         "syn = load_config('conf/synthetic.yaml')\n"
         "syn.update(num_points=256, synthetic_items=2)\n"
         "assert get_dataset(syn, 'train')[1]['src_xyz'].shape == (180, 3)\n"
+        "from regtr_tpu_torch.convert import state_dict_from_reference\n"
+        "sd = chip_smoke.reference_state_dict(cfg)\n"
+        "model.load_state_dict(state_dict_from_reference(sd, cfg))\n"
         # (tqdm is not listed: some torch builds import it themselves; the
         # source check below keeps the port's own imports of it local)
         "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -104,7 +110,11 @@ def test_port_sources_do_not_name_jax():
     for module in ("ops/gather.py", "test.py", "evaluation.py", "demo.py",
                    "calibrate.py", "evaluate_3dmatch.py",
                    "compute_overlap.py", "utils/viz.py", "data/calibrate.py",
-                   "parallel/dist.py", "utils/misc.py", "utils/profiling.py"):
+                   "parallel/dist.py", "utils/misc.py", "utils/profiling.py",
+                   "convert_checkpoint.py", "convert.py", "core/masking.py",
+                   "core/pairs.py", "core/se3.py", "utils/kernel_points.py",
+                   "ops/kpconv.py", "losses/feature.py", "models/regtr.py",
+                   "models/__init__.py"):
         assert ROOT / "regtr_tpu_torch" / module in sources
     for path in sources:
         for line, root in _imported_roots(path):
