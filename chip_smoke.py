@@ -10,7 +10,8 @@ non-zero without one, and without the checkout beside it).  Phases:
 1. device: the card's name and power limit (nvidia-smi), its maximum SM
    clock, torch and CUDA;
 2. build: one nvcc per kernel source (csrc/flash_attn_fwd.cu,
-   flash_attn_bwd.cu, segsum.cu, gather.cu), all at once, into .build/;
+   flash_attn_bwd.cu, segsum.cu, gather.cu, neighbors.cu), all at once,
+   into .build/;
 3. attention kernels against their plain PyTorch versions on the card, at
    the inference, training, protocol, trainer and ModelNet protocol shapes
    and at ragged shapes, bf16
@@ -29,6 +30,12 @@ non-zero without one, and without the checkout beside it).  Phases:
    than 48 KB and than a block's shared memory, a batch stride larger than
    the slice, operands off 16 bytes); CUDA-event times beside the bound and
    the library call, the row gather in turns with index_select;
+3c. the brute neighbor search (K6) against its plain version, bitwise and
+   bitwise over two launches, on the ten searches of phase 5's pyramid,
+   the four of a ModelNet pair's and a constructed fp32-key case (Ns <
+   4K), and its threshold against the plain version's on the card;
+   CUDA-event times of the kernel and of the plain version beside the
+   bound (8 fp32 operations a candidate);
 4. small input: the tiny config in fp32 on the card against the same model
    on the CPU (plain versions), same seeded parameters and input: the
    forward, and the gradients of one training step leaf by leaf;
@@ -38,10 +45,12 @@ non-zero without one, and without the checkout beside it).  Phases:
    then the batched forward, timed, with per-stage times, a torch.profiler
    pass (device busy share, top kernels; the trace goes to
    .build/forward_trace.json), checks of the outputs, of the kernels'
-   launch counts (no gather transpose), of the pyramid's bitwise
-   repeatability, of the kernel path
+   launch counts (ten neighbor searches, no gather transpose), of the
+   pyramid's bitwise repeatability, of the kernel path
    against a forward whose attention calls the plain version, and of the
    forward with K5 against the forward with index_select (bitwise);
+5b. `python -m regtr_tpu_torch.bench` at its defaults, once: its JSON
+   line beside phase 5's pairs/s;
 6. training path: the shipped 3DMatch config (fp32) on 2 pairs of those
    scans with GT poses and overlap labels, collated at the bucket the
    config picks (24576): the gather transpose on the step's level-0 table
@@ -168,7 +177,6 @@ ROOT = Path(__file__).resolve().parent
 N0 = 20480            # bucket of the inference path (bench.py's)
 N_PAIRS = 4
 N_POINTS = 19000      # points per synthetic scan
-VOXEL = 0.025         # the scans' grid (conf/3dmatch.yaml first_subsampling_dl)
 TIMED_ITERS = 10
 REPEATS = 5
 PROFILED_ITERS = 3
@@ -291,18 +299,11 @@ def phase_device():
         f"{torch.cuda.get_device_name(0)}")
 
 
-def kernel_libraries():
-    from regtr_tpu_torch.ops import attention, gather, kpconv
-
-    return [attention.FWD_LIBRARY, attention.BWD_LIBRARY,
-            kpconv.SEGSUM_LIBRARY, gather.GATHER_LIBRARY]
-
-
 def phase_build():
     from regtr_tpu_torch.ops import cuda_build
 
     log("== phase 2: build")
-    libs = kernel_libraries()
+    libs = cuda_build.kernel_libraries()
     t0 = time.perf_counter()
     cuda_build.build_all(libs)
     for lib in libs:
@@ -764,6 +765,165 @@ def phase_gather(train_n0):
                              library_ms=lib_ms)
 
 
+def recorded_searches(cfg, pts, mask):
+    """The brute searches of one pyramid of cfg over (pts, mask) on the
+    card, in build_pyramid's order, recorded where the pyramid calls them:
+    [(name, (queries, q_mask, supports, s_mask, radius, k))]."""
+    from regtr_tpu_torch.ops import pyramid
+
+    spec = pyramid.make_pyramid_spec(cfg, pts.shape[1])
+    calls, real = [], pyramid.radius_neighbors_batch
+
+    def record(*args, **kw):
+        calls.append(args)
+        return real(*args, **kw)
+
+    pyramid.radius_neighbors_batch = record
+    try:
+        pyramid.build_pyramid(pts, mask, spec)
+    finally:
+        pyramid.radius_neighbors_batch = real
+    names = [f"L{li} {what}" for li in range(spec.num_levels)
+             for what in (("neighbors", "pools", "upsamples")
+                          if li + 1 < spec.num_levels else ("neighbors",))]
+    check(len(calls) == len(names) == searches_per_pyramid(cfg),
+          f"{len(calls)} searches in one pyramid of {spec.capacities}")
+    return list(zip(names, calls))
+
+
+def search_bound(args):
+    """K6's least time (ms) on these inputs, and what bounds it: 8 fp32
+    operations a candidate (the 3-term dot, the doubling, two adds, the
+    compare) over the candidates the data needs (each cloud's valid
+    queries times its valid supports), on the CUDA cores; and the bytes of
+    the inputs read once and the int64 table written once."""
+    queries, q_mask, supports, s_mask, _, k = args
+    b, nq, ns = queries.shape[0], queries.shape[1], supports.shape[1]
+    cands = float((q_mask.sum(1).double() * s_mask.sum(1).double()).sum())
+    return bound(8 * cands, b * (nq + ns) * 13 + b * nq * k * 8, "float32")
+
+
+def check_search(name, args, plain_iters=3):
+    """K6 on one search's inputs: bitwise its plain version and itself over
+    two launches, CUDA-event times of both beside the bound."""
+    import torch
+
+    from regtr_tpu_torch.ops import neighbors
+
+    queries, q_mask, supports, s_mask, radius, k = args
+    got = neighbors.brute_radius_neighbors(*args)
+    again = neighbors.brute_radius_neighbors(*args)
+    ref = neighbors.brute_radius_neighbors_plain(*args)
+    torch.cuda.synchronize()
+    ns = supports.shape[1]
+    rows = int(((got != ref).any(-1)).sum())
+    err = float((got - ref).abs().max())
+    check(torch.equal(got, ref) and torch.equal(got, again),
+          f"K6 {name} ({queries.shape[0]} x {queries.shape[1]} queries, "
+          f"{ns} supports, r {radius}, K {k}, "
+          f"{'bf16' if ns >= 4 * k else 'fp32'} key): bitwise the plain "
+          f"version ({rows} rows differ) and over two launches")
+    ms = cuda_ms(lambda: neighbors.brute_radius_neighbors(*args), iters=20)
+    plain_ms = cuda_ms(lambda: neighbors.brute_radius_neighbors_plain(*args),
+                       iters=plain_iters, warmup=1)
+    bnd = search_bound(args)
+    filled = (got < ns).sum(-1).float()
+    log(f"    {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bnd[0]:.4f} ms ({bnd[1]}; {bnd[0] / ms * 100:.1f} % of it); "
+        f"mean neighbors {float(filled[q_mask].mean()):.1f}, rows full "
+        f"{float((filled[q_mask] == k).float().mean()) * 100:.1f} %")
+    return dict(what=name, shape=[queries.shape[0], queries.shape[1], ns, k],
+                radius=radius, key="bfloat16" if ns >= 4 * k else "float32",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd[0],
+                bound_by=bnd[1])
+
+
+def phase_neighbors():
+    """Phase 3c: K6 against its plain version on the card, bitwise, on the
+    ten searches of phase 5's pyramid, the four of a ModelNet pair's and a
+    constructed fp32-key case (Ns < 4K); times beside the bound.  Returns
+    the kernels line's numbers."""
+    import torch
+
+    from regtr_tpu_torch.config import modelnet_config, threedmatch_config
+    from regtr_tpu_torch.data import get_dataset
+    from regtr_tpu_torch.data.collate import collate_pairs
+    from regtr_tpu_torch.ops import neighbors
+
+    log("== phase 3c: the brute neighbor search (K6) against its plain "
+        "version")
+    for r in (0.0625, 0.125, 0.25, 0.5, 1.0, 0.0825, 0.165):
+        plain = torch.full((), r * r, dtype=torch.float32,
+                           device=DEVICE) * 1.004
+        check(float(plain) == neighbors.acceptance_threshold(r),
+              f"radius {r}: the kernel's threshold is the plain version's "
+              f"r^2 * 1.004 on the card ({float(plain)!r})")
+    cfg = threedmatch_config()
+    pts_np, mask_np = synthetic_pairs(N_PAIRS, N_POINTS, seed=0)
+    pts = torch.from_numpy(pts_np).to(DEVICE)
+    mask = torch.from_numpy(mask_np).to(DEVICE)
+    searches = recorded_searches(cfg, pts, mask)
+    log(f"  phase 5's pyramid ({N_PAIRS} pairs at bucket {N0}; "
+        f"{card_line()}):")
+    main = [check_search(name, args) for name, args in searches]
+    total = {key: sum(e[key] for e in main)
+             for key in ("ms", "plain_ms", "bound_ms")}
+    # what bounds the most of the summed bound
+    total["bound_by"] = max(("operations", "bytes"), key=lambda by: sum(
+        e["bound_ms"] for e in main if e["bound_by"] == by))
+    log(f"  per forward ({len(main)} launches): kernel {total['ms']:.3f} "
+        f"ms, plain {total['plain_ms']:.1f} ms, bound "
+        f"{total['bound_ms']:.3f} ms (medians of single launches, CUDA "
+        f"events)")
+
+    mcfg = modelnet_config(root=str(MODELNET_NO_SHARDS))
+    batch, _ = collate_pairs([get_dataset(mcfg, "test")[0]],
+                             [max(mcfg["buckets"])])
+    log(f"  a ModelNet pair's pyramid (bucket {batch['points'].shape[1]}, "
+        "the dataset's synthetic stand-in):")
+    modelnet = [check_search(name, args) for name, args in recorded_searches(
+        mcfg, torch.from_numpy(batch["points"]).to(DEVICE),
+        torch.from_numpy(batch["mask"]).to(DEVICE))]
+
+    # the fp32 key: level 2's points as queries into 150 of level 3's
+    q, qm = searches[6][1][0], searches[6][1][1]
+    s, sm = (x[:, :150].contiguous() for x in searches[9][1][:2])
+    log("  fp32 key (Ns < 4K):")
+    exact = check_search("L2 into 150 of L3", (q, qm, s, sm, 0.5, 40))
+    check(exact["key"] == "float32", "the constructed case takes the fp32 "
+          "key")
+    return dict(main=main, total=total, modelnet=modelnet, exact=exact)
+
+
+def phase_bench(pairs_per_s):
+    """`python -m regtr_tpu_torch.bench` at its defaults, once: its one
+    JSON line has bench.py's keys, beside phase 5's pairs/s."""
+    import torch
+
+    log("== phase 5b: python -m regtr_tpu_torch.bench")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "regtr_tpu_torch.bench"],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    took = time.perf_counter() - t0
+    for line in proc.stderr.strip().splitlines()[-8:]:
+        log("  " + line)
+    check(proc.returncode == 0, f"the bench exited {proc.returncode}")
+    lines = proc.stdout.strip().splitlines()
+    record = json.loads(lines[-1])
+    keys = {"metric", "value", "unit", "vs_baseline", "init_s", "compile_s",
+            "lower_compile_s", "first_exec_s", "tflops", "mfu"}
+    check(len(lines) == 1 and set(record) == keys
+          and record["metric"] == "3dmatch_inference_throughput"
+          and record["unit"] == "pairs/sec" and record["value"] > 0
+          and record["tflops"] is None and record["mfu"] is None,
+          f"one JSON line with bench.py's keys: {lines[-1]}")
+    log(f"bench: {record['value']} pairs/s ({took:.1f} s with the process's "
+        f"start) beside phase 5's {pairs_per_s:.3f} pairs/s")
+    return record
+
+
 def phase_small_input():
     import dataclasses
 
@@ -869,106 +1029,12 @@ def phase_small_input():
           f"leaf: worst rel L2 {worst[0]:.2e} ({worst[1]}, tol {TOL_GRAD})")
 
 
-def _rotation(rng, max_deg):
-    """Rotation about a random axis by an angle uniform in [0, max_deg]."""
-    axis = rng.randn(3)
-    axis /= np.linalg.norm(axis)
-    angle = np.deg2rad(rng.uniform(0.0, max_deg))
-    k = np.array([[0.0, -axis[2], axis[1]], [axis[2], 0.0, -axis[0]],
-                  [-axis[1], axis[0], 0.0]])
-    return np.eye(3) + np.sin(angle) * k + (1.0 - np.cos(angle)) * k @ k
-
-
-def _wavy_plane(rng, n, half_x, half_y):
-    """Points on a plane patch z = a sum of 1-3 sine waves (floor, wall)."""
-    x = rng.uniform(-half_x, half_x, n)
-    y = rng.uniform(-half_y, half_y, n)
-    z = np.zeros(n)
-    for _ in range(rng.randint(1, 4)):
-        kx, ky = rng.uniform(2.0, 9.0, 2) * rng.choice([-1.0, 1.0], 2)
-        z += rng.uniform(0.005, 0.04) * np.sin(
-            kx * x + ky * y + rng.uniform(0.0, 2 * np.pi))
-    return np.stack([x, y, z], 1)
-
-
-def _box_surface(rng, n, half):
-    """Points on the surface of a box with half-extents `half`."""
-    areas = np.array([half[1] * half[2], half[0] * half[2],
-                      half[0] * half[1]]).repeat(2)
-    face = rng.choice(6, n, p=areas / areas.sum())
-    pts = rng.uniform(-1.0, 1.0, (n, 3)) * half
-    axis, sign = face // 2, np.where(face % 2 == 0, 1.0, -1.0)
-    pts[np.arange(n), axis] = sign * half[axis]
-    return pts
-
-
-def make_room(rng, n_points):
-    """One indoor scene at meter scale: a floor, four walls and 4-8 boxes
-    of furniture, ~n_points points spread by area."""
-    lx, ly, h = rng.uniform(3.5, 5.5), rng.uniform(3.5, 5.5), \
-        rng.uniform(2.3, 2.8)
-    halves = [rng.uniform(0.2, 0.5, 3) * rng.uniform(0.8, 2.0)
-              for _ in range(rng.randint(4, 9))]
-    areas = np.array([lx * ly, lx * h, lx * h, ly * h, ly * h]
-                     + [8 * (a[0] * a[1] + a[0] * a[2] + a[1] * a[2])
-                        for a in halves])
-    counts = (areas / areas.sum() * n_points).astype(int)
-    floor = _wavy_plane(rng, counts[0], lx / 2, ly / 2) + [lx / 2, ly / 2, 0]
-    parts = [floor]
-    for i, wall_y in ((1, 0.0), (2, ly)):      # walls along x
-        q = _wavy_plane(rng, counts[i], lx / 2, h / 2)
-        parts.append(np.stack([q[:, 0] + lx / 2, q[:, 2] + wall_y,
-                               q[:, 1] + h / 2], 1))
-    for i, wall_x in ((3, 0.0), (4, lx)):      # walls along y
-        q = _wavy_plane(rng, counts[i], ly / 2, h / 2)
-        parts.append(np.stack([q[:, 2] + wall_x, q[:, 0] + ly / 2,
-                               q[:, 1] + h / 2], 1))
-    for half, n in zip(halves, counts[5:]):
-        offset = [rng.uniform(0.6, lx - 0.6), rng.uniform(0.6, ly - 0.6),
-                  half[2]]
-        parts.append(_box_surface(rng, n, half) @ _rotation(rng, 180).T
-                     + offset)
-    return np.concatenate(parts).astype(np.float32), (lx, ly)
-
-
-def _scans(n_pairs, n_points, seed):
-    """Pairs of overlapping scans of synthetic rooms: a list of (cloud,
-    rotation, translation), source then target of each pair, each cloud
-    the room's points moved by its own random rigid transform (rotation up
-    to 50 degrees).
-
-    Like a 3DMatch fragment, a scan is a contiguous patch at the density of
-    a 2.5 cm voxel grid: the room is voxel-downsampled once, and a scan is
-    the n_points points nearest to its center.
-    """
-    rng = np.random.RandomState(seed)
-    scans = []
-    for _ in range(n_pairs):
-        room, (lx, ly) = make_room(rng, 600000)
-        _, first = np.unique(np.floor(room / VOXEL).astype(np.int64),
-                             axis=0, return_index=True)
-        room = room[np.sort(first)]
-        center = np.array([lx * 0.45, ly * 0.5, 1.1])
-        for c in (center, center + [0.7, 0.3, 0.0]):
-            dist = np.linalg.norm(room - c, axis=1)
-            keep = np.argpartition(dist, n_points)[:n_points]
-            rot = _rotation(rng, 50.0)
-            trans = rng.randn(3) * 0.3
-            scans.append(((room[keep] @ rot.T + trans).astype(np.float32),
-                          rot, trans))
-    return scans
-
-
 def synthetic_pairs(n_pairs, n_points, seed):
-    """Interleaved pairs of synthetic scans padded to the bucket N0:
-    (points (2B, N0, 3), mask (2B, N0))."""
-    clouds = [c for c, _, _ in _scans(n_pairs, n_points, seed)]
-    pts = np.zeros((len(clouds), N0, 3), np.float32)
-    mask = np.zeros((len(clouds), N0), bool)
-    for i, c in enumerate(clouds):
-        pts[i, :len(c)] = c
-        mask[i, :len(c)] = True
-    return pts, mask
+    """Interleaved pairs of synthetic scans (regtr_tpu_torch/data/rooms.py)
+    padded to the bucket N0: (points (2B, N0, 3), mask (2B, N0))."""
+    from regtr_tpu_torch.data.rooms import padded_pairs
+
+    return padded_pairs(n_pairs, n_points, seed, N0)
 
 
 def synthetic_samples(n_pairs, n_points, seed, cfg):
@@ -976,10 +1042,11 @@ def synthetic_samples(n_pairs, n_points, seed, cfg):
     src -> tgt (3, 4), and overlap labels at cfg['overlap_radius'] from the
     port's compute_overlap (collate with data.collate.collate_pairs)."""
     from regtr_tpu_torch.data.overlap import compute_overlap
+    from regtr_tpu_torch.data.rooms import scans
 
-    scans = _scans(n_pairs, n_points, seed)
+    clouds = scans(n_pairs, n_points, seed)
     samples = []
-    for (src, rs, ts), (tgt, rt, tt) in zip(scans[::2], scans[1::2]):
+    for (src, rs, ts), (tgt, rt, tt) in zip(clouds[::2], clouds[1::2]):
         rot = rt @ rs.T
         pose = np.concatenate([rot, (tt - rot @ ts)[:, None]], 1)
         src_ov, tgt_ov, _ = compute_overlap(src @ rot.T + pose[:, 3], tgt,
@@ -1031,6 +1098,7 @@ def phase_main_path():
     import torch
 
     import regtr_tpu_torch
+    from regtr_tpu_torch.bench import stage_medians
     from regtr_tpu_torch.config import threedmatch_config
     from regtr_tpu_torch.models import create_model
     from regtr_tpu_torch.nn import transformer
@@ -1084,14 +1152,16 @@ def phase_main_path():
             rates.append(N_PAIRS * TIMED_ITERS / (time.perf_counter() - t0))
         launches = _launch_counts()
     forwards = REPEATS * TIMED_ITERS
+    searches = searches_per_pyramid(cfg)
     check(launches == {"flash_attn_fwd": per_forward * forwards,
                        "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0,
                        "segsum": 0, "segment_transpose": 0,
                        "row_gather": gathers * forwards,
-                       "element_gather": 0},
+                       "element_gather": 0,
+                       "neighbor_search": searches * forwards},
           f"launches in {forwards} forwards: {launches} ({per_forward} "
-          f"attention forwards and {gathers} row gathers per forward, no "
-          "gather transpose)")
+          f"attention forwards, {gathers} row gathers and {searches} "
+          "neighbor searches per forward, no gather transpose)")
     peak = torch.cuda.max_memory_allocated()
     pairs_per_s = statistics.median(rates)
     log(f"forward: {N_PAIRS / pairs_per_s * 1e3:.1f} ms per batch of "
@@ -1118,37 +1188,19 @@ def phase_main_path():
     check(orth < 1e-3 and bool(((det - 1).abs() < 1e-3).all()),
           f"rotations orthonormal (max dev {orth:.1e}) with det +1")
 
-    # -- per-stage times (synchronized after each stage)
-    stages = {"pyramid": [], "backbone": [], "transformer": [],
-              "head_pose": []}
-    with torch.inference_mode():
-        for _ in range(TIMED_ITERS):
-            t = time.perf_counter()
-            levels = model.preprocess(pts, mask)
-            torch.cuda.synchronize()
-            stages["pyramid"].append(time.perf_counter() - t)
-            t = time.perf_counter()
-            feats_un, pe = model.encode(levels)
-            torch.cuda.synchronize()
-            stages["backbone"].append(time.perf_counter() - t)
-            t = time.perf_counter()
-            cond = model.condition(feats_un, pe, levels[-1].mask)
-            torch.cuda.synchronize()
-            stages["transformer"].append(time.perf_counter() - t)
-            t = time.perf_counter()
-            model.head_and_pose(cond, levels[-1].points, levels[-1].mask,
-                                pe)
-            torch.cuda.synchronize()
-            stages["head_pose"].append(time.perf_counter() - t)
+    # -- per-stage times (synchronized after each stage), as the port's
+    # bench takes them
+    stages = stage_medians(model, pts, mask, TIMED_ITERS,
+                           torch.device(DEVICE))
     log("stages (median ms, host clock around synchronized stages): "
-        + ", ".join(f"{k} {statistics.median(v) * 1e3:.2f}"
-                    for k, v in stages.items()))
+        + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
     with torch.inference_mode():
         profile_device(lambda: model(pts, mask), PROFILED_ITERS, "forward",
                        "forward_trace.json")
 
     # -- determinism of the pyramid
     with torch.inference_mode():
+        levels = model.preprocess(pts, mask)
         again = model.preprocess(pts, mask)
     same = all(
         (getattr(a, f) is None and getattr(b, f) is None)
@@ -1200,7 +1252,7 @@ def phase_main_path():
         ab = k5_against_index_select(lambda: model(pts, mask), TIMED_ITERS)
     log(f"forward, K5 vs index_select in turns ({TIMED_ITERS} forwards "
         f"each, host clock): {ab} ms per batch")
-    return launches, forwards
+    return launches, forwards, pairs_per_s
 
 
 _COUNTED = {}
@@ -1210,7 +1262,7 @@ def _counted():
     """Every kernel wrapper, by the name the kernels line gives it (taken
     once, so that a route that swaps a wrapper for its plain version still
     reads the wrappers' counts)."""
-    from regtr_tpu_torch.ops import attention, gather, kpconv
+    from regtr_tpu_torch.ops import attention, gather, kpconv, neighbors
 
     if not _COUNTED:
         _COUNTED.update({
@@ -1220,7 +1272,8 @@ def _counted():
             "segsum": kpconv.segment_sum,
             "segment_transpose": kpconv.segment_transpose,
             "row_gather": gather.row_gather,
-            "element_gather": gather.element_gather})
+            "element_gather": gather.element_gather,
+            "neighbor_search": neighbors.brute_radius_neighbors})
     return _COUNTED
 
 
@@ -1231,6 +1284,24 @@ def _launch_counts():
 def _zero_launch_counts():
     for fn in _counted().values():
         fn.launches = 0
+
+
+def searches_per_pyramid(cfg):
+    """K6 launches in one pyramid of cfg's architecture (the brute search,
+    one launch over the batch): a neighbor table per level, a pool and an
+    upsample table per stride (ops/pyramid.py build_pyramid)."""
+    from regtr_tpu_torch.ops.pyramid import count_pyramid_levels
+
+    return 3 * count_pyramid_levels(cfg["architecture"]) - 2
+
+
+def plain_route_launches(per_step):
+    """The launches of kernel_route("plain") for the kernel route's
+    `per_step`: K6's alone.  The plain route keeps the neighbor search: its
+    integer tables are held to their plain version on their own (phase
+    3c), so that the route's gradients measure the float kernels alone."""
+    return {k: v if k == "neighbor_search" else 0
+            for k, v in per_step.items()}
 
 
 def row_gathers_per_forward(cfg):
@@ -1302,7 +1373,9 @@ def kernel_route(route):
     """The training path with some kernels swapped for their plain
     versions: "kernels" (none), "index_select" (K5's row gather),
     "plain transpose" (the transpose kernels: a stable sort), "plain"
-    (the attention, the row gather and the gather transpose)."""
+    (the attention, the row gather and the gather transpose).  Every route
+    keeps K6: its tables are integers, held to its plain version on their
+    own (phase 3c, held_to_plain)."""
     from regtr_tpu_torch.nn import transformer
     from regtr_tpu_torch.ops import attention, kpconv
 
@@ -1335,6 +1408,36 @@ def _in_turns(fns, names, reps=1):
     for fn, name in list(zip(fns, names)) + list(zip(fns, names))[::-1]:
         times[name].append(cuda_ms(fn, reps=reps))
     return times
+
+
+def watch_against_fp64(model, levels, batch, leaves):
+    """ROADMAP Watch 1 taken apart: the first step's gradients (no clip)
+    on the kernel route and on the plain route, each against a float64
+    step on the plain route, the same tables and parameters, at the leaves
+    where the two routes lie farthest apart.  The kernels may lie no
+    farther from the float64 step than the plain route does (1.5x):
+    where the routes part, the plain route's fp32 sums carry it.  ->
+    {leaf: (kernels vs plain, kernels vs fp64, plain vs fp64)}."""
+    grads = {}
+    for route in ("kernels", "plain"):
+        with kernel_route(route):
+            grads[route] = recorded_first_step(
+                model, levels, batch["pose"], batch["overlap0"])[0]
+    grads["fp64"] = fp64_first_step(model, levels, batch)[0]
+    names = [n for n, _ in model.named_parameters()]
+    out = {}
+    for leaf in leaves:
+        k, p, f = (grads[r][names.index(leaf)]
+                   for r in ("kernels", "plain", "fp64"))
+        out[leaf] = (rel_l2(k, p), rel_l2(k, f), rel_l2(p, f))
+    log("  the watch against a float64 step (kernels vs plain / kernels vs "
+        "fp64 / plain vs fp64): " + ", ".join(
+            f"{leaf} {a:.3e} / {b:.3e} / {c:.3e}"
+            for leaf, (a, b, c) in out.items()))
+    check(all(b <= 1.5 * c for _, b, c in out.values()),
+          "at the leaves where the routes part most, the kernel route lies "
+          "no farther from the float64 step than 1.5x the plain route")
+    return out
 
 
 def check_transpose(ids, num, stride, what):
@@ -1558,10 +1661,11 @@ def phase_training():
     kernels = {"flash_attn_fwd": n_attn, "flash_attn_bwd_dkv": n_attn,
                "flash_attn_bwd_dq": n_attn, "segsum": n_segsum,
                "segment_transpose": n_transposes, "row_gather": gathers,
-               "element_gather": 0}
+               "element_gather": 0,
+               "neighbor_search": searches_per_pyramid(cfg)}
     wants = {"kernels": kernels, "index_select": dict(kernels, row_gather=0),
              "plain transpose": dict(kernels, segment_transpose=0),
-             "plain": dict.fromkeys(kernels, 0), "kernels again": kernels}
+             "plain": plain_route_launches(kernels), "kernels again": kernels}
     for route, want in wants.items():
         with kernel_route(route):
             before = _launch_counts()
@@ -1590,6 +1694,8 @@ def phase_training():
           f"{len(errs)} parameters: worst rel L2 {errs[0][0]:.2e} "
           f"({errs[0][1]}; tol {TOL_GRAD})")
     segsum["segsum"]["first_step_grad_rel_l2"] = errs[0][0]
+    segsum["segsum"]["first_step_vs_fp64"] = watch_against_fp64(
+        model, levels, batch, [name for _, name in errs[:4]])
     # phase 12 holds the data-parallel first step to this one
     PHASE12.mkdir(parents=True, exist_ok=True)
     np.savez(PHASE12 / "first_step.npz", **batch_np)
@@ -1614,7 +1720,8 @@ def phase_training():
     check(launches == want, f"launches in {TRAIN_STEPS} steps: {launches} "
           f"({n_attn} attention forwards and backwards, {n_segsum} "
           f"segment sums over {n_transposes} transposes (one per distinct "
-          f"table) and {gathers} row gathers per step)")
+          f"table), {gathers} row gathers and "
+          f"{kernels['neighbor_search']} neighbor searches per step)")
     totals = [float(m["total"]) for m in history]
     norms = [float(m["grad_norm"]) for m in history]
     log(f"train: {elapsed / TRAIN_STEPS * 1e3:.1f} ms per step, "
@@ -1715,6 +1822,7 @@ def write_protocol_root(base):
 
     from regtr_tpu_torch.core import se3_np
     from regtr_tpu_torch.data.overlap import compute_overlap
+    from regtr_tpu_torch.data.rooms import rotation, voxel_room
 
     shutil.rmtree(base, ignore_errors=True)
     meta = base / "src" / "datasets" / "3dmatch"
@@ -1724,16 +1832,13 @@ def write_protocol_root(base):
     for si in range(PROTOCOL_SCENES):
         scene = f"synthroom-{si}"
         (base / "data" / "indoor" / "test" / scene).mkdir(parents=True)
-        room, (lx, ly) = make_room(rng, 600000)
-        _, first = np.unique(np.floor(room / VOXEL).astype(np.int64),
-                             axis=0, return_index=True)
-        room = room[np.sort(first)]
+        room, (lx, ly) = voxel_room(rng)
         poses, local = [], []
         for i in range(PROTOCOL_FRAGMENTS):
             center = np.array([lx * 0.2 + i * PROTOCOL_STEP, ly * 0.5, 1.1])
             dist = np.linalg.norm(room - center, axis=1)
             world = room[np.argpartition(dist, N_POINTS)[:N_POINTS]]
-            pose = se3_np.se3_init(_rotation(rng, 180.0),
+            pose = se3_np.se3_init(rotation(rng, 180.0),
                                    rng.randn(3) * 0.5)      # frame -> world
             local.append(se3_np.se3_transform(se3_np.se3_inv(pose), world)
                          .astype(np.float32))
@@ -1852,7 +1957,8 @@ def phase_protocol():
         f"test_batch_size {shipped['test_batch_size']}, buckets "
         f"{shipped['buckets']}")
     per_forward = {"flash_attn_fwd": 2 * shipped["num_encoder_layers"],
-                   "row_gather": row_gathers_per_forward(shipped)}
+                   "row_gather": row_gathers_per_forward(shipped),
+                   "neighbor_search": searches_per_pyramid(shipped)}
     smi = card_line()
     result = {}
     for bm in PROTOCOL_PAIRS:
@@ -1979,7 +2085,7 @@ TRAINER_STEPS = (8, 10)         # the first run's niter, the resumed run's
 # the kernels of the trainer's path (every one but K5b)
 TRAINER_KERNELS = ("flash_attn_fwd", "flash_attn_bwd_dkv",
                    "flash_attn_bwd_dq", "segsum", "segment_transpose",
-                   "row_gather")
+                   "row_gather", "neighbor_search")
 TRAINER_TIMED_STEPS = 5     # the trainer's step back to back, synchronized
 
 
@@ -2047,16 +2153,17 @@ def held_to_plain(found, keep=None):
     """Every kernel launch of the training path and of the neighbor
     searches, held to its plain version on the same inputs as it happens:
     the attention forward (out and lse) and backward within TOL and TOL_BWD
-    of the operands' dtype (as phase 3 holds them), the row gathers (the
-    kernels' and the grid search's), the element gather (the scan and grid
-    searches' merges) and the segment transpose bitwise, the segment sum
-    within TOL_SEGSUM of its largest |sum|.  found[(kernel, shape, dtype)]
+    of the operands' dtype (as phase 3 holds them), the brute search (K6,
+    wrapped where the pyramid calls it), the row gathers (the kernels' and
+    the grid search's), the element gather (the scan and grid searches'
+    merges) and the segment transpose bitwise, the segment sum within
+    TOL_SEGSUM of its largest |sum|.  found[(kernel, shape, dtype)]
     = (launches, largest |difference|, all within).  keep, if given, gets
     the element gather's inputs of the largest src under 'args' (for
     timing)."""
     import torch
 
-    from regtr_tpu_torch.ops import attention, kpconv, neighbors
+    from regtr_tpu_torch.ops import attention, kpconv, neighbors, pyramid
     from regtr_tpu_torch.ops.gather import (element_gather_reference,
                                             row_gather_reference)
 
@@ -2071,7 +2178,21 @@ def held_to_plain(found, keep=None):
     real = dict(fwd=attention._kernel_fwd, bwd=attention._bwd,
                 gather=kpconv.row_gather, transpose=kpconv.segment_transpose,
                 sum=kpconv.segment_sum, search_gather=neighbors.row_gather,
-                elements=neighbors.element_gather)
+                elements=neighbors.element_gather,
+                search=pyramid.radius_neighbors_batch)
+
+    def search(queries, q_mask, supports, s_mask, radius, k, method,
+               chunk, cell_cap):
+        out = real["search"](queries, q_mask, supports, s_mask, radius, k,
+                             method=method, chunk=chunk, cell_cap=cell_cap)
+        if method == "brute":
+            ref = neighbors.brute_radius_neighbors_plain(
+                queries, q_mask, supports, s_mask, radius, k)
+            same = torch.equal(out, ref)
+            note("neighbor_search", (queries.shape[0], queries.shape[1],
+                                     supports.shape[1], k), queries.dtype,
+                 0.0 if same else max_err(out, ref), same)
+        return out
 
     def fwd(q, k, v, bias, scale, want_lse):
         out, lse = real["fwd"](q, k, v, bias, scale, want_lse)
@@ -2145,9 +2266,11 @@ def held_to_plain(found, keep=None):
     kpconv.segment_transpose, kpconv.segment_sum = transpose, segsum
     neighbors.row_gather = held_rows("search_gather")
     neighbors.element_gather = elements
+    pyramid.radius_neighbors_batch = search
     try:
         yield
     finally:
+        pyramid.radius_neighbors_batch = real["search"]
         attention._kernel_fwd, attention._bwd = real["fwd"], real["bwd"]
         kpconv.row_gather = real["gather"]
         neighbors.row_gather = real["search_gather"]
@@ -2205,7 +2328,7 @@ def trainer_kernels_against_plain(latest, per_step, trainer_shape):
             torch.cuda.synchronize()
         used = {k: v - before[k] for k, v in _launch_counts().items()}
         want = (per_step if route.startswith("kernels")
-                else dict.fromkeys(per_step, 0))
+                else plain_route_launches(per_step))
         log(f"trainer's last batch, {route}: loss "
             f"{float(losses['total'].detach()):.5f}, launches {used}")
         check(used == want, f"{route} route launched {want}")
@@ -2513,7 +2636,8 @@ def phase_modelnet(modelnet_shape):
     npz = base / "params.npz"
     save_params_npz(npz, model)
     per_pair = {"flash_attn_fwd": 2 * cfg["num_encoder_layers"],
-                "row_gather": row_gathers_per_forward(cfg)}
+                "row_gather": row_gathers_per_forward(cfg),
+                "neighbor_search": searches_per_pyramid(cfg)}
     smi = card_line()
     result = {}
     try:
@@ -2663,7 +2787,8 @@ def phase_tools(protocol):
     pair = ["--src", str(base / "src.ply"), "--tgt", str(base / "tgt.ply"),
             "--device", DEVICE]
     per_pair = {"flash_attn_fwd": 2 * cfg["num_encoder_layers"],
-                "row_gather": row_gathers_per_forward(cfg)}
+                "row_gather": row_gathers_per_forward(cfg),
+                "neighbor_search": searches_per_pyramid(cfg)}
     runs = {}
     for flag in ("attn", "plain"):
         _zero_launch_counts()
@@ -2718,7 +2843,8 @@ def phase_tools(protocol):
     launches = _launch_counts()
     check(launches == dict(dict.fromkeys(launches, 0), **{
         "flash_attn_fwd": 2 * big["num_encoder_layers"],
-        "row_gather": row_gathers_per_forward(big)})
+        "row_gather": row_gathers_per_forward(big),
+        "neighbor_search": searches_per_pyramid(big)})
           and bool(torch.isfinite(run["outputs"]["pose"]).all())
           and run["maps"] is None,
           f"demo on a 3DMatch-size pair (the 3dmatch preset, "
@@ -2800,7 +2926,8 @@ OPTIONS_DROPOUT = 0.1
 FP32_TIE = 4 * 2.0 ** -24
 # kernels of the training path, in phase 11's checks
 STEP_KERNELS = ("flash_attn_fwd", "flash_attn_bwd_dkv", "flash_attn_bwd_dq",
-                "segsum", "segment_transpose", "row_gather")
+                "segsum", "segment_transpose", "row_gather",
+                "neighbor_search")
 
 
 def options_config():
@@ -2928,15 +3055,15 @@ def options_searches(cfg, pts, mask, smi):
                 f"launches, largest |kernel - plain| {err:.3e}")
     used = {m: {k: n for k, n in v["launches"].items() if n}
             for m, v in search.items()}
-    check(not used["brute"]
+    check(used["brute"] == {"neighbor_search": searches_per_pyramid(cfg)}
           and set(used["scan"]) == {"element_gather"}
           and set(used["grid"]) == {"element_gather", "row_gather"}
           and all(ok for found in held.values() for *_, ok in found.values())
           and all(sum(c for (nm, *_), (c, *_) in held[m].items() if nm == k)
                   == n for m in used for k, n in used[m].items()),
-          f"searches' launches {used}: scan K5b, grid K5b and K5a, each "
-          "launch bitwise its plain version (torch.gather, index_select) on "
-          "the same inputs")
+          f"searches' launches {used}: brute K6, scan K5b, grid K5b and "
+          "K5a, each launch bitwise its plain version (the plain brute "
+          "search, torch.gather, index_select) on the same inputs")
     differ, slack = {}, {}
     for method in ("scan", "grid"):
         for li, (lv, ref) in enumerate(zip(pyramids[method],
@@ -3064,6 +3191,7 @@ def phase_options():
     fwd_ms = statistics.median(times) * 1e3
     check(launches["flash_attn_fwd"] == 2 * n_layers
           and launches["row_gather"] > 0
+          and launches["neighbor_search"] == searches_per_pyramid(cfg)
           and launches["element_gather"] == launches["segsum"] == 0,
           f"options forward ({N_PAIRS} pairs) launches {launches}")
     found = {}
@@ -3079,7 +3207,10 @@ def phase_options():
           and sum(c for (nm, *_), (c, *_) in found.items()
                   if nm == "flash_attn_fwd") == 2 * n_layers
           and sum(c for (nm, *_), (c, *_) in found.items()
-                  if nm == "row_gather") == per_pair["row_gather"] > 0,
+                  if nm == "row_gather") == per_pair["row_gather"] > 0
+          and sum(c for (nm, *_), (c, *_) in found.items()
+                  if nm == "neighbor_search") == per_pair["neighbor_search"]
+          == searches_per_pyramid(cfg),
           f"one pair's forward: each of its {sum(per_pair.values())} "
           f"launches {per_pair} within its tolerance of its plain version")
     log(f"options forward ({smi}): {fwd_ms:.1f} ms per batch of {N_PAIRS} "
@@ -3211,10 +3342,11 @@ def phase_options():
     check(used["flash_attn_fwd"] == used["flash_attn_bwd_dkv"]
           == used["flash_attn_bwd_dq"] == 0
           and all(used[k] == step_launches[k]
-                  for k in ("row_gather", "segsum", "segment_transpose")),
+                  for k in ("row_gather", "segsum", "segment_transpose",
+                            "neighbor_search")),
           f"dropout step launches {used}: attention dense (K1, K2, K3 "
-          "none by design), the gathers and their transposes as a "
-          "micro-step's")
+          "none by design), the gathers, their transposes and the "
+          "neighbor searches as a micro-step's")
     result["dropout"] = dict(ms=statistics.median(times) * 1e3,
                              launches=used, peak_gib=peak / 2**30)
     del model_d, runs, g0, g1, g2, grads
@@ -4382,7 +4514,8 @@ def converted_protocol(model, cfg, npz, config):
     launches = _launch_counts()
     n = len(record)
     per_pair = {"flash_attn_fwd": 2 * cfg["num_encoder_layers"],
-                "row_gather": row_gathers_per_forward(cfg)}
+                "row_gather": row_gathers_per_forward(cfg),
+                "neighbor_search": searches_per_pyramid(cfg)}
     check(n == PROTOCOL_SCENES * len(PROTOCOL_PAIRS["3DMatch"])
           and launches == dict(dict.fromkeys(launches, 0), **{
               k: v * n for k, v in per_pair.items()}),
@@ -4526,8 +4659,10 @@ def main():
     attn = timed("3", phase_attention, train_n, protocol_n, trainer_shape,
                  modelnet_shape)
     gather_rows, gather_elements = timed("3b", phase_gather, train_n0)
+    searches = timed("3c", phase_neighbors)
     timed("4", phase_small_input)
-    infer_launches, forwards = timed("5", phase_main_path)
+    infer_launches, forwards, pairs_per_s = timed("5", phase_main_path)
+    bench = timed("5b", phase_bench, pairs_per_s)
     train_launches, segsum = timed("6", phase_training)
     protocol = timed("7", phase_protocol)
     trained = timed("8", phase_trainer, trainer_shape)
@@ -4688,6 +4823,25 @@ def main():
                       "element_gather"],
              other_shapes=[dict(what="probe (phase 3b)", **gather_elements)],
              **options["search"]["k5b"]),
+        dict(name="neighbor_search", row="K6", route="cuda",
+             **trainer_launches("neighbor_search"),
+             **modelnet_launches("neighbor_search"),
+             **converted_launches("neighbor_search"),
+             source=src + "neighbors.cu",
+             replaces="regtr_tpu/ops/neighbors.py:267",
+             also_replaces=["regtr_tpu/ops/neighbors.py:215"],
+             launches=infer_launches["neighbor_search"], forwards=forwards,
+             train_launches=train_launches["neighbor_search"],
+             steps=TRAIN_STEPS, protocol_launches={
+                 bm: r["launches"]["neighbor_search"]
+                 for bm, r in protocol.items()},
+             what="the ten searches of one phase-5 forward's pyramid "
+                  "(4 pairs, bucket 20480), summed",
+             max_abs_err=max(e["max_abs_err"] for e in searches["main"]),
+             **searches["total"], library_ms=None,
+             per_search=searches["main"], modelnet_searches=searches[
+                 "modelnet"], other_shapes=[searches["exact"]],
+             bench=bench),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

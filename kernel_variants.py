@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Time design variants of the attention kernels (and of K5b, the element
-gather; K5a's narrow rows; K4, the gather transpose) on one CUDA card.
+gather; K5a's narrow rows; K4, the gather transpose; K6, the brute
+neighbor search) on one CUDA card.
 
-    python3 kernel_variants.py [--forward | --gather | --rows | --segsum]
+    python3 kernel_variants.py [--forward | --gather | --rows | --segsum
+                                | --neighbors]
                                [--parent OLD.cu] [--variants NAME,NAME,...]
     python3 kernel_variants.py --step-profile TREE
 
 Each variant is the committed regtr_tpu_torch/csrc/flash_attn_bwd.cu (with
 --forward: flash_attn_fwd.cu; with --gather or --rows: gather.cu; with
---segsum: segsum.cu) and the headers
+--segsum: segsum.cu; with --neighbors: neighbors.cu) and the headers
 beside it (csrc/*.cuh) with a few text edits, each applied to whichever of
 the files holds its text (a variant whose edits no longer apply is skipped,
 and said so).  All are built at once with the port's nvcc flags into
@@ -38,7 +40,10 @@ first use together timed in turns; a parent source of the sorted form
 (int64 perm and starts) is timed with its torch.sort + searchsorted route
 on int64 ids, as it ran; torch.sort of the int32 ids is the yardstick.
 Rows and segsum time single launches (chip_smoke.py's `ms`) and runs of 10
-back-to-back calls.  Step profile: the
+back-to-back calls.  Neighbors: K6 on the ten searches of chip_smoke.py
+phase 5's pyramid (4 pairs of synthetic scans at bucket 20480) and the four
+of a ModelNet pair's, each variant's table against the plain version's,
+single launches in two turns with the bound beside them.  Step profile: the
 training step's backward (the shipped config, chip_smoke.py phase 6's
 batch; 2 warm-up steps, then torch.profiler over 3 backwards) with the
 port imported from TREE (the root of a checkout, e.g. a parent commit
@@ -218,6 +223,68 @@ SEGSUM_VARIANTS = {
                       "diagnostic: the rows are left in the atomics' order"),
 }
 
+# K6 (csrc/neighbors.cu): the sorted insertion of the shipped source
+_K6_INSERT = """          if (take) {
+            const uint64_t c = ((uint64_t)key << 32) | (uint32_t)(base + t);
+            int pos = count < k ? count : k - 1;
+            while (pos > 0 && list[pos - 1] > c) {
+              list[pos] = list[pos - 1];
+              --pos;
+            }
+            list[pos] = c;
+            if (count < k) ++count;
+            if (count == k)
+              lim = hot_bound<kBf16>(unordered((uint32_t)(list[k - 1] >> 32)));
+          }"""
+_K6_APPEND = """          if (take && count < k) {
+            list[count++] = ((uint64_t)key << 32) | (uint32_t)(base + t);
+            if (count == k) {
+              for (int a = 1; a < k; ++a) {
+                const uint64_t c = list[a];
+                int j = a;
+                for (; j > 0 && list[j - 1] > c; --j) list[j] = list[j - 1];
+                list[j] = c;
+              }
+              lim = hot_bound<kBf16>(unordered((uint32_t)(list[k - 1] >> 32)));
+            }
+          } else if (take) {
+            const uint64_t c = ((uint64_t)key << 32) | (uint32_t)(base + t);
+            int pos = k - 1;
+            for (; pos > 0 && list[pos - 1] > c; --pos) list[pos] = list[pos - 1];
+            list[pos] = c;
+            lim = hot_bound<kBf16>(unordered((uint32_t)(list[k - 1] >> 32)));
+          }"""
+_K6_END = "  if (i < nq)\n    for (int j = 0; j < k; ++j)\n      row[j] ="
+_K6_END_SORTED = """  if (count < k)
+    for (int a = 1; a < count; ++a) {
+      const uint64_t c = list[a];
+      int j = a;
+      for (; j > 0 && list[j - 1] > c; --j) list[j] = list[j - 1];
+      list[j] = c;
+    }
+""" + _K6_END
+NEIGHBOR_VARIANTS = {
+    "shipped": ([], "the committed source"),
+    "threads_128": ([("  while (threads > 32 &&", "  while (false &&")],
+                    "128 queries a block at every shape (the first design)"),
+    "unroll_4": ([("#pragma unroll 8", "#pragma unroll 4")],
+                 "the scan unrolled 4 times (the first design)"),
+    "unroll_16": ([("#pragma unroll 8", "#pragma unroll 16")],
+                  "the scan unrolled 16 times"),
+    "append_sort": ([(_K6_INSERT, _K6_APPEND), (_K6_END, _K6_END_SORTED)],
+                    "append until the list is full, sort it then and at "
+                    "the end"),
+    "tile_2048": ([("constexpr int kTile = 1024;",
+                    "constexpr int kTile = 2048;")],
+                  "tiles of 2048 supports (32 KB; the first design)"),
+    "tile_512": ([("constexpr int kTile = 1024;",
+                   "constexpr int kTile = 512;")],
+                 "tiles of 512 supports (8 KB)"),
+    "no_insert": ([(_K6_INSERT, "          count += take;")],
+                  "diagnostic: nothing is kept: the scan and the exact "
+                  "test alone"),
+}
+
 # kind -> (source, variants, kernels whose D = 32 / fp32 ptxas lines print)
 KINDS = {
     "bwd": ("flash_attn_bwd.cu", VARIANTS, ["IfLi32E"]),
@@ -229,6 +296,8 @@ KINDS = {
     "rows": ("gather.cu", ROWS_VARIANTS, ["row_gather_narrow_kernelIji"]),
     "segsum": ("segsum.cu", SEGSUM_VARIANTS,
                ["segsum_kernelIf", "transpose_"]),
+    "neighbors": ("neighbors.cu", NEIGHBOR_VARIANTS,
+                  ["brute_neighbors_kernelILi64ELb1E"]),
 }
 
 
@@ -249,7 +318,8 @@ def _ptxas_lines(log, kernels):
 
 
 def build(parent, kind, only=None):
-    from regtr_tpu_torch.ops import attention, cuda_build, gather, kpconv
+    from regtr_tpu_torch.ops import (attention, cuda_build, gather, kpconv,
+                                     neighbors)
 
     name_cu, variants, kernels = KINDS[kind]
     texts = {f.name: f.read_text()
@@ -278,7 +348,8 @@ def build(parent, kind, only=None):
         for name, path in sources.items()}
     declare = {"bwd": attention._declare_bwd, "fwd": attention._declare_fwd,
                "gather": gather._declare, "rows": gather._declare,
-               "segsum": kpconv._declare_segsum}[kind]
+               "segsum": kpconv._declare_segsum,
+               "neighbors": neighbors._declare}[kind]
     libs = {}
     for name, proc in procs.items():
         log = proc.communicate()[0]
@@ -287,7 +358,8 @@ def build(parent, kind, only=None):
             continue
         print(f"{name}: ptxas: {' / '.join(_ptxas_lines(log, kernels))}")
         lib = ctypes.CDLL(str(OUT / f"{name}.so"))
-        if name == "parent" and not _parent_form(sources[name]):
+        if (name == "parent" and kind in ("rows", "segsum")
+                and not _parent_form(sources[name])):
             _declare_sorted_form(lib, kind)
             lib.sorted_form = True
         else:
@@ -695,6 +767,73 @@ def main_gather(libs):
                   + f"  ({what})", flush=True)
 
 
+def run_search(lib, args):
+    """One launch of a library's brute search (as ops/neighbors.py calls
+    it); its table."""
+    import torch
+
+    from regtr_tpu_torch.ops.neighbors import acceptance_threshold
+
+    q, qm, s, sm, radius, k = args
+    b, nq, ns = q.shape[0], q.shape[1], s.shape[1]
+    out = torch.empty((b, nq, k), dtype=torch.int64, device=q.device)
+    _check(lib.regtr_brute_neighbors(
+        q.data_ptr(), qm.data_ptr(), s.data_ptr(), sm.data_ptr(), b, nq, ns,
+        k, acceptance_threshold(radius), int(ns >= 4 * k), out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream))
+    return out
+
+
+def main_neighbors(libs):
+    """K6's variants on the ten searches of chip_smoke.py phase 5's pyramid
+    and the four of a ModelNet pair's: bitwise the plain version, then
+    single launches in two turns (in order, then in reverse)."""
+    import torch
+
+    import chip_smoke
+    from regtr_tpu_torch.config import modelnet_config, threedmatch_config
+    from regtr_tpu_torch.data import get_dataset
+    from regtr_tpu_torch.data.collate import collate_pairs
+    from regtr_tpu_torch.ops.neighbors import brute_radius_neighbors_plain
+
+    pts, mask = (torch.from_numpy(x).cuda()
+                 for x in chip_smoke.synthetic_pairs(
+                     chip_smoke.N_PAIRS, chip_smoke.N_POINTS, seed=0))
+    mcfg = modelnet_config(root=str(chip_smoke.MODELNET_NO_SHARDS))
+    batch, _ = collate_pairs([get_dataset(mcfg, "test")[0]],
+                             [max(mcfg["buckets"])])
+    groups = {"3DMatch forward": chip_smoke.recorded_searches(
+        threedmatch_config(), pts, mask),
+        "ModelNet pair": chip_smoke.recorded_searches(
+            mcfg, torch.from_numpy(batch["points"]).cuda(),
+            torch.from_numpy(batch["mask"]).cuda())}
+    for group, searches in groups.items():
+        sums = {}
+        print(f"{group}: ms of single launches in two turns (bound):")
+        for name, args in searches:
+            ref = brute_radius_neighbors_plain(*args)
+            same = {v: torch.equal(run_search(lib, args), ref)
+                    for v, lib in libs.items()}
+            times = {}
+            for v in list(libs) + list(reversed(list(libs))):
+                lib = libs[v]
+                times.setdefault(v, []).append(
+                    cuda_ms(lambda: run_search(lib, args)))
+            bnd = chip_smoke.search_bound(args)[0]
+            print(f"  {name} {list(args[0].shape[:2])} x {args[2].shape[1]}"
+                  f", K {args[5]} (bound {bnd:.4f}):")
+            for v, turns in times.items():
+                sums[v] = sums.get(v, 0.0) + sum(turns) / 2
+                print(f"    {v}: " + " / ".join(f"{t:.4f}" for t in turns)
+                      + ("" if same[v] else "  (not the plain version's "
+                         "table)"), flush=True)
+        for v, total in sums.items():
+            what = (NEIGHBOR_VARIANTS[v][1] if v in NEIGHBOR_VARIANTS
+                    else "--parent")
+            print(f"  {group}, all searches: {v} {total:.3f} ms ({what})",
+                  flush=True)
+
+
 def _masked_inputs(shape, dtype, seed):
     import torch
 
@@ -769,6 +908,8 @@ def main():
                       help="the row gather's narrow-row variants")
     kind.add_argument("--segsum", action="store_true",
                       help="the gather transpose's variants")
+    kind.add_argument("--neighbors", action="store_true",
+                      help="the brute neighbor search's variants")
     kind.add_argument("--step-profile", metavar="TREE",
                       help="the gather transpose's kernels per training "
                       "backward, for the port in a checkout's root")
@@ -791,7 +932,8 @@ def main():
     print(card_line(), flush=True)
     t0 = time.perf_counter()
     kind = ("fwd" if args.forward else "gather" if args.gather else "rows"
-            if args.rows else "segsum" if args.segsum else "bwd")
+            if args.rows else "segsum" if args.segsum else "neighbors"
+            if args.neighbors else "bwd")
     libs = build(args.parent, kind,
                  args.variants.split(",") if args.variants else None)
     print(f"built {len(libs)} libraries in {time.perf_counter() - t0:.1f} s",
@@ -804,6 +946,8 @@ def main():
         return main_rows(libs)
     if args.segsum:
         return main_segsum(libs)
+    if args.neighbors:
+        return main_neighbors(libs)
     names = ("dq", "dk", "dv", "dbias")
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v, bias, do = _masked_inputs((32, 2240, 2240, 32), dtype, 1)

@@ -6,7 +6,7 @@ by a hash of its source, the headers beside it (csrc/*.cuh) and the flags
 (a changed source or header is rebuilt), which is loaded with ctypes.  Every C entry point returns the CUDA error of its
 launch; `check` turns a non-zero one into an exception.  `build_all`
 starts one nvcc per source at once, so a cold start waits for the slowest
-source only.
+source only; `kernel_libraries` lists every source of the port.
 """
 from __future__ import annotations
 
@@ -122,3 +122,12 @@ def build_all(libraries: Sequence[CudaLibrary]) -> None:
             errors.append(str(exc))
     if errors:
         raise RuntimeError("\n".join(errors))
+
+
+def kernel_libraries() -> list:
+    """Every kernel library of the port: K1, K2/K3, K4, K5 and K6."""
+    from . import attention, gather, kpconv, neighbors
+
+    return [attention.FWD_LIBRARY, attention.BWD_LIBRARY,
+            kpconv.SEGSUM_LIBRARY, gather.GATHER_LIBRARY,
+            neighbors.NEIGHBORS_LIBRARY]

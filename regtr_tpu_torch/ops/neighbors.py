@@ -6,12 +6,16 @@ to Ns are "shadow" neighbors pointing at an appended pad row; only supports
 within the radius are returned, nearest first.
 
 Three searches, as in the JAX package (`neighbor_method`):
-  * 'brute' (the default): distance matrices by matrix expansion.  The JAX
-    version selects with `jax.lax.approx_min_k` on bf16-rounded
-    distances; that has no counterpart here, so this one takes an exact
-    `torch.topk` over the same bf16-rounded distances, which is what the
-    JAX CPU fallback computes.  Ties in bf16 at the K-th slot may resolve
-    to a different (equally near) point than in JAX.
+  * 'brute' (the default): fp32 distances by the |q|^2 - 2 q.s + |s|^2
+    expansion, selection on their bf16 rounding (on the fp32 values when
+    Ns < 4K).  The JAX version selects with `jax.lax.approx_min_k`, the
+    TPU's own partial reduction; here a CUDA tensor launches the K6 kernel
+    (csrc/neighbors.cu) and a CPU tensor takes the plain version
+    (`brute_radius_neighbors_plain`), which computes the same bits: the
+    K nearest by (key, support id), so that equal keys go lowest id
+    first (`jax.lax.top_k`'s rule).  Ties in bf16 at the K-th slot may
+    resolve to a different (equally near) point than in JAX, whose
+    approximate reduction has no fixed rule for them.
   * 'scan': the streaming exact merge over support chunks, on fp32
     distances.
   * 'grid': candidates from the 27 cells of edge `radius` around each
@@ -24,34 +28,74 @@ tensors, which moves the int32 ids' bits).
 """
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 
+from .cuda_build import CudaLibrary
 from .gather import element_gather, row_gather
 
 _INF = 3.0e38
 _BITS = 10
 _MAXC = (1 << _BITS) - 1
 _KEY_SENTINEL = 2 ** 31 - 1
+MAX_K = 256      # csrc/neighbors.cu regtr_neighbors_max_k
 
 
-def brute_radius_neighbors(queries: torch.Tensor, q_mask: torch.Tensor,
-                           supports: torch.Tensor, s_mask: torch.Tensor,
-                           radius: float, k: int,
-                           query_chunk: int = 4096) -> torch.Tensor:
-    """K-nearest-within-radius table, distances by matrix expansion.
+def _declare(lib):
+    lib.regtr_brute_neighbors.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3
+        + [ctypes.c_int, ctypes.c_float, ctypes.c_int]
+        + [ctypes.c_void_p] * 2)
+    lib.regtr_brute_neighbors.restype = ctypes.c_int
+    lib.regtr_neighbors_max_k.argtypes = []
+    lib.regtr_neighbors_max_k.restype = ctypes.c_int
+
+
+NEIGHBORS_LIBRARY = CudaLibrary("neighbors.cu", _declare)
+
+
+def _sq3(x, y, z):
+    """(x*x + y*y) + z*z elementwise, in that order."""
+    return (x * x + y * y) + z * z
+
+
+def _sortable(key: torch.Tensor) -> torch.Tensor:
+    """fp32 (or its bits as int32) -> int64 in the order of the floats
+    (-0 below +0): the bits as int32 with the magnitude bits of a negative
+    float flipped.  On int32 the map is its own inverse."""
+    bits = key.view(torch.int32)
+    return (bits ^ ((bits >> 31) & 0x7FFFFFFF)).long()
+
+
+def brute_radius_neighbors_plain(queries: torch.Tensor, q_mask: torch.Tensor,
+                                 supports: torch.Tensor,
+                                 s_mask: torch.Tensor, radius: float, k: int,
+                                 query_chunk: int = 4096) -> torch.Tensor:
+    """K-nearest-within-radius table, distances by the expansion: the plain
+    version of the K6 kernel, and its specification.
 
     queries (B, Nq, 3), q_mask (B, Nq), supports (B, Ns, 3), s_mask (B, Ns)
     -> (B, Nq, k) int64, shadow entries = Ns.
 
-    The |q|^2 - 2 q.s + |s|^2 expansion cancels badly, so it needs true
-    fp32: callers keep TF32 off for matrix products (see RegTR.forward).
+    Each sum is taken elementwise in one fixed order (`_sq3`, and q.s as
+    (qx*sx + qy*sy) + qz*sz), with no matrix product, so that the kernel
+    can repeat it bit for bit.  The selection key is the bf16 rounding of
+    the fp32 distance (the fp32 distance when Ns < 4k); the k smallest
+    keys are taken, equal keys lowest support id first (a top-k of int64
+    (key, id) words), and kept where key <= r^2 * 1.004.
     """
     b, nq, _ = queries.shape
     ns = supports.shape[1]
-    s_sq = (supports * supports).sum(dim=-1)
+    sx, sy, sz = supports.unbind(-1)
+    s_sq = _sq3(sx, sy, sz)
     s_masked = torch.where(s_mask[..., None], supports,
                            torch.full_like(supports, 1e6))
     s_sq_masked = torch.where(s_mask, s_sq, torch.full_like(s_sq, 1e13))
+    sx, sy, sz = (c[:, None, :] for c in s_masked.unbind(-1))
+    s_sq_masked = s_sq_masked[:, None, :]
+    ids = torch.arange(ns, dtype=torch.int64, device=queries.device)
     r_sq = torch.full((), radius * radius, dtype=torch.float32,
                       device=queries.device)
     k_eff = min(k, ns)
@@ -59,24 +103,89 @@ def brute_radius_neighbors(queries: torch.Tensor, q_mask: torch.Tensor,
 
     out = torch.empty((b, nq, k), dtype=torch.int64, device=queries.device)
     for q0 in range(0, nq, query_chunk):
-        q = queries[:, q0:q0 + query_chunk]
-        d = ((q * q).sum(dim=-1)[..., None]
-             - 2.0 * (q @ s_masked.transpose(1, 2))
-             + s_sq_masked[:, None, :])
-        if use_exact:
-            vals, idx = torch.topk(d, k_eff, dim=-1, largest=False)
-        else:
-            # fp32 distances, selection on their bf16 rounding: in-radius
-            # values are small (<= r^2), where bf16's 0.4% relative error
-            # only moves the effective radius, hence the 1.004 margin below.
-            vals, idx = torch.topk(d.to(torch.bfloat16), k_eff, dim=-1,
-                                   largest=False)
-            vals = vals.to(torch.float32)
+        qx, qy, qz = (c[..., None] for c in
+                      queries[:, q0:q0 + query_chunk].unbind(-1))
+        dot = (qx * sx + qy * sy) + qz * sz
+        d = (_sq3(qx, qy, qz) - 2.0 * dot) + s_sq_masked
+        # fp32 distances, selection on their bf16 rounding: in-radius
+        # values are small (<= r^2), where bf16's 0.4% relative error only
+        # moves the effective radius, hence the 1.004 margin below.
+        key = d if use_exact else d.to(torch.bfloat16).to(torch.float32)
+        words = torch.topk((_sortable(key) << 32) | ids, k_eff, dim=-1,
+                           largest=False).values
+        idx = words & 0xFFFFFFFF
+        vals = _sortable((words >> 32).int()).int().view(torch.float32)
         ok = (vals <= r_sq * 1.004) & q_mask[:, q0:q0 + query_chunk, None]
         sel = torch.where(ok, idx, torch.full_like(idx, ns))
         out[:, q0:q0 + query_chunk, :k_eff] = sel
     out[..., k_eff:] = ns
     return out
+
+
+def acceptance_threshold(radius: float) -> float:
+    """The fp32 threshold the kernel takes, computed in numpy: the bits of
+    the plain version's `r_sq * 1.004` (the fp32 square of the radius, times
+    1.004 rounded to fp32)."""
+    return float(np.float32(radius * radius) * np.float32(1.004))
+
+
+def check_kernel_inputs(queries, q_mask, supports, s_mask, k: int) -> None:
+    """Raise ValueError unless the kernel takes these inputs: queries (B,
+    Nq, 3) and supports (B, Ns, 3) fp32, q_mask (B, Nq) and s_mask (B, Ns)
+    bool, all contiguous and on one device, and 1 <= k <= MAX_K."""
+    b, nq, ns = queries.shape[0], queries.shape[1], supports.shape[1]
+    for name, x, shape, dtype in (
+            ("queries", queries, (b, nq, 3), torch.float32),
+            ("q_mask", q_mask, (b, nq), torch.bool),
+            ("supports", supports, (b, ns, 3), torch.float32),
+            ("s_mask", s_mask, (b, ns), torch.bool)):
+        if (tuple(x.shape) != shape or x.dtype != dtype
+                or x.device != queries.device or not x.is_contiguous()):
+            raise ValueError(
+                f"brute neighbor search: {name} must be a contiguous "
+                f"{dtype} {shape} on {queries.device}, got "
+                f"{'a non-contiguous ' if not x.is_contiguous() else ''}"
+                f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"brute neighbor search: k {k} not in [1, {MAX_K}]")
+
+
+def brute_radius_neighbors(queries: torch.Tensor, q_mask: torch.Tensor,
+                           supports: torch.Tensor, s_mask: torch.Tensor,
+                           radius: float, k: int,
+                           query_chunk: int = 4096) -> torch.Tensor:
+    """The brute search: on CUDA tensors the K6 kernel (one launch over
+    the whole batch; `.launches` counts them), on CPU tensors the plain
+    version (which alone reads `query_chunk`); any other device raises.
+
+    Shapes as `brute_radius_neighbors_plain`; the kernel's inputs as
+    `check_kernel_inputs` says -> (B, Nq, k) int64, shadow entries = Ns.
+    """
+    if queries.device.type == "cpu":
+        return brute_radius_neighbors_plain(queries, q_mask, supports,
+                                            s_mask, radius, k, query_chunk)
+    if queries.device.type != "cuda":
+        raise ValueError(f"no brute neighbor search for device "
+                         f"{queries.device}")
+    check_kernel_inputs(queries, q_mask, supports, s_mask, k)
+    b, nq, ns = queries.shape[0], queries.shape[1], supports.shape[1]
+    out = torch.empty((b, nq, k), dtype=torch.int64, device=queries.device)
+    if ns == 0:
+        return out.fill_(0)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(queries.device):
+        err = NEIGHBORS_LIBRARY.load().regtr_brute_neighbors(
+            queries.data_ptr(), q_mask.data_ptr(), supports.data_ptr(),
+            s_mask.data_ptr(), b, nq, ns, k, acceptance_threshold(radius),
+            int(ns >= 4 * k), out.data_ptr(),
+            torch.cuda.current_stream(queries.device).cuda_stream)
+    NEIGHBORS_LIBRARY.check(err, "brute neighbor search")
+    brute_radius_neighbors.launches += 1
+    return out
+
+
+brute_radius_neighbors.launches = 0
 
 
 def _round_up(x: int, m: int) -> int:

@@ -587,3 +587,57 @@ def test_deformable_block_on_the_card(cuda, modulated):
     for a, b in zip(g_g, g_c):
         assert torch.isfinite(a).all()
         assert float((a - b).norm()) <= 1e-4 * float(b.norm()) + 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nq,ns,k,radius", [
+    (2, 3000, 3000, 32, 0.0625),    # bf16 key, level 0 of a small pyramid
+    (2, 1400, 3000, 36, 0.125),     # a pool search: fewer queries
+    (2, 3000, 1400, 40, 0.25),      # an upsample search: fewer supports
+    (3, 300, 100, 50, 0.2),         # fp32 key (Ns < 4k)
+    (2, 129, 4100, 64, 0.3),        # ragged block and tile edges
+    (2, 50, 600, 100, 0.5),         # k above 64: the wider instance
+    (2, 17, 5, 8, 1.0),             # k above Ns
+])
+def test_brute_neighbor_kernel_is_the_plain_version(cuda, b, nq, ns, k,
+                                                    radius):
+    """K6 against its plain version on the same inputs: bitwise, on grid
+    clouds whose rows fill K and tie at the K-th slot; the second launch
+    repeats the first."""
+    from regtr_tpu_torch.ops import neighbors
+
+    supports, s_mask = _plane_clouds(b, ns, ns + k)
+    queries, q_mask = _plane_clouds(b, nq, nq + 1)
+    q_mask[0, ::7] = False
+    if ns > 4096:
+        s_mask[0, 2048:4096] = False        # one tile with no support
+    args = (queries, q_mask, supports, s_mask)
+    before = neighbors.brute_radius_neighbors.launches
+    got = neighbors.brute_radius_neighbors(
+        *(a.to(cuda) for a in args), radius, k)
+    again = neighbors.brute_radius_neighbors(
+        *(a.to(cuda) for a in args), radius, k)
+    torch.cuda.synchronize()
+    ref = neighbors.brute_radius_neighbors_plain(
+        *(a.to(cuda) for a in args), radius, k)
+    assert neighbors.brute_radius_neighbors.launches == before + 2
+    assert got.dtype == torch.int64 and got.shape == (b, nq, k)
+    assert torch.equal(got, ref) and torch.equal(got, again)
+    assert torch.equal(got.cpu(), neighbors.brute_radius_neighbors_plain(
+        *args, radius, k))
+    assert (got[~q_mask.to(cuda)] == ns).all()
+
+
+@pytest.mark.cuda
+def test_brute_neighbor_kernel_refuses_what_it_does_not_take(cuda):
+    from regtr_tpu_torch.ops import neighbors
+
+    q = torch.zeros(2, 64, 3, device=cuda)
+    m = torch.ones(2, 64, dtype=torch.bool, device=cuda)
+    for args in ((q.transpose(0, 1).contiguous().transpose(0, 1), m, q, m,
+                  0.1, 8),
+                 (q.half(), m, q, m, 0.1, 8),
+                 (q, m.float(), q, m, 0.1, 8),
+                 (q, m, q, m, 0.1, neighbors.MAX_K + 1)):
+        with pytest.raises(ValueError):
+            neighbors.brute_radius_neighbors(*args)

@@ -47,7 +47,8 @@ def test_port_imports_no_jax_flax_or_yaml():
         "regtr_tpu_torch.utils.profiling, "
         "regtr_tpu_torch.convert_checkpoint, regtr_tpu_torch.core.masking, "
         "regtr_tpu_torch.core.pairs, regtr_tpu_torch.core.se3, "
-        "regtr_tpu_torch.utils.kernel_points\n"
+        "regtr_tpu_torch.utils.kernel_points, regtr_tpu_torch.bench, "
+        "regtr_tpu_torch.data.rooms, regtr_tpu_torch.ops.neighbors\n"
         "from regtr_tpu_torch.config import threedmatch_config\n"
         "from regtr_tpu_torch.models import create_model\n"
         "create_model(threedmatch_config(first_feats_dim=16, d_embed=32, "
@@ -114,7 +115,8 @@ def test_port_sources_do_not_name_jax():
                    "convert_checkpoint.py", "convert.py", "core/masking.py",
                    "core/pairs.py", "core/se3.py", "utils/kernel_points.py",
                    "ops/kpconv.py", "losses/feature.py", "models/regtr.py",
-                   "models/__init__.py"):
+                   "models/__init__.py", "bench.py", "data/rooms.py",
+                   "ops/neighbors.py"):
         assert ROOT / "regtr_tpu_torch" / module in sources
     for path in sources:
         for line, root in _imported_roots(path):
