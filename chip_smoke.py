@@ -32,10 +32,16 @@ non-zero without one, and without the checkout beside it).  Phases:
    the library call, the row gather in turns with index_select;
 3c. the brute neighbor search (K6) against its plain version, bitwise and
    bitwise over two launches, on the ten searches of phase 5's pyramid,
-   the four of a ModelNet pair's and a constructed fp32-key case (Ns <
-   4K), and its threshold against the plain version's on the card;
-   CUDA-event times of the kernel and of the plain version beside the
-   bound (8 fp32 operations a candidate);
+   the four of a ModelNet pair's, a constructed fp32-key case (Ns < 4K)
+   and adversarial cases (a pair 100 m from the origin, supports in tight
+   clusters at the threshold's edge, a single tile, K above every
+   neighbor count, 64-bit words at Ns >= 65536), its threshold against
+   the plain version's on the card and its launch plan against the
+   mirror in ops/neighbors.py; CUDA-event times of the kernel (single
+   launches and back to back) beside its first design's and the plain
+   version's, and beside three bounds: 8 fp32 operations a candidate over
+   every valid pair (brute) and over the pairs the culling test keeps at
+   a 32 x 32 grain (culled), and the bytes;
 4. small input: the tiny config in fp32 on the card against the same model
    on the CPU (plain versions), same seeded parameters and input: the
    forward, and the gradients of one training step leaf by leaf;
@@ -791,21 +797,79 @@ def recorded_searches(cfg, pts, mask):
     return list(zip(names, calls))
 
 
+# K6's times in its first design (one thread a query, every tile scanned;
+# PERF.md section 6, NVIDIA H100 80GB HBM3, 700.00 W), by phase 3c's
+# search names
+FIRST_DESIGN_MS = {
+    "L0 neighbors": 2.2507, "L0 pools": 1.9096, "L0 upsamples": 1.4712,
+    "L1 neighbors": 1.1516, "L1 pools": 1.1983, "L1 upsamples": 0.8823,
+    "L2 neighbors": 0.8612, "L2 pools": 0.5808, "L2 upsamples": 0.5972,
+    "L3 neighbors": 0.3778, "ModelNet L0 neighbors": 0.4366,
+    "ModelNet L0 pools": 0.5298, "ModelNet L0 upsamples": 0.1511,
+    "ModelNet L1 neighbors": 0.1602, "L2 into 150 of L3": 0.3962}
+FIRST_DESIGN_FORWARD_MS = 11.281
+CULL_GRAIN = 32        # the culled bound's queries x supports of sorted order
+
+
+def culled_candidates(args, grain=CULL_GRAIN):
+    """The (valid query, valid support) pairs of the grain x grain blocks
+    of the sorted order that ops/neighbors.py `tile_may_accept` (the
+    kernel's culling test, mirrored) keeps at the threshold's bound."""
+    import torch
+
+    from regtr_tpu_torch.ops import neighbors
+
+    queries, q_mask, supports, s_mask, radius, k = args
+    lim = neighbors.hot_bound(neighbors.acceptance_threshold(radius),
+                              supports.shape[1] >= 4 * k)
+    q_lo, q_hi = neighbors.run_boxes(queries, q_mask, grain)
+    s_lo, s_hi = neighbors.run_boxes(supports, s_mask, grain)
+    keep = neighbors.tile_may_accept(q_lo[:, :, None], q_hi[:, :, None],
+                                     s_lo[:, None], s_hi[:, None], lim)
+
+    def valid(mask):
+        b, n = mask.shape
+        pad = torch.zeros(b, -n % grain, dtype=torch.bool, device=mask.device)
+        return torch.cat([mask, pad], 1).reshape(b, -1, grain).sum(-1)
+
+    return float((keep.double() * valid(q_mask)[:, :, None].double()
+                  * valid(s_mask)[:, None, :].double()).sum())
+
+
 def search_bound(args):
-    """K6's least time (ms) on these inputs, and what bounds it: 8 fp32
-    operations a candidate (the 3-term dot, the doubling, two adds, the
-    compare) over the candidates the data needs (each cloud's valid
-    queries times its valid supports), on the CUDA cores; and the bytes of
-    the inputs read once and the int64 table written once."""
+    """K6's least times (ms) on these inputs: 8 fp32 operations a
+    candidate (the 3-term dot, the doubling, two adds, the compare) on the
+    CUDA cores over (a) every valid query times every valid support (the
+    brute bound) and (b) the candidates the culling test keeps at a
+    32 x 32 grain (`culled_candidates`); (c) the bytes of the inputs read
+    once and the int64 table written once.  bound_ms is the larger of (b)
+    and (c)."""
     queries, q_mask, supports, s_mask, _, k = args
     b, nq, ns = queries.shape[0], queries.shape[1], supports.shape[1]
-    cands = float((q_mask.sum(1).double() * s_mask.sum(1).double()).sum())
-    return bound(8 * cands, b * (nq + ns) * 13 + b * nq * k * 8, "float32")
+    brute = float((q_mask.sum(1).double() * s_mask.sum(1).double()).sum())
+    culled = culled_candidates(args)
+    nbytes = b * (nq + ns) * 13 + b * nq * k * 8
+    bound_ms, bound_by = bound(8 * culled, nbytes, "float32")
+    return dict(bound_ms=bound_ms, bound_by=bound_by,
+                brute_bound_ms=8 * brute / PEAK_FLOPS["float32"] * 1e3,
+                culled_bound_ms=8 * culled / PEAK_FLOPS["float32"] * 1e3,
+                bytes_bound_ms=nbytes / PEAK_BYTES * 1e3,
+                candidates=brute, culled_candidates=culled)
 
 
-def check_search(name, args, plain_iters=3):
+def _share(bound_ms, ms):
+    """A bound's share of a time, in percent, or '> 100 %' where the
+    kernel beats a bound counted at a coarser grain than it culls."""
+    pct = bound_ms / ms * 100
+    return (f"{pct:.1f} %" if pct <= 100 else
+            "> 100 % (the kernel culls finer than the 32 x 32 count)")
+
+
+def check_search(name, args, plain_iters=3, iters=20, b2b=True):
     """K6 on one search's inputs: bitwise its plain version and itself over
-    two launches, CUDA-event times of both beside the bound."""
+    two launches, CUDA-event times of both beside the bounds and the first
+    design's time.  The first design's time, typed in from PERF.md, goes
+    to the log line only: the returned numbers are this run's."""
     import torch
 
     from regtr_tpu_torch.ops import neighbors
@@ -822,27 +886,106 @@ def check_search(name, args, plain_iters=3):
           f"K6 {name} ({queries.shape[0]} x {queries.shape[1]} queries, "
           f"{ns} supports, r {radius}, K {k}, "
           f"{'bf16' if ns >= 4 * k else 'fp32'} key): bitwise the plain "
-          f"version ({rows} rows differ) and over two launches")
-    ms = cuda_ms(lambda: neighbors.brute_radius_neighbors(*args), iters=20)
+          f"version "
+          f"({rows} rows differ) and over two launches")
+    ms = cuda_ms(lambda: neighbors.brute_radius_neighbors(*args), iters=iters)
+    b2b_ms = (cuda_ms(lambda: neighbors.brute_radius_neighbors(*args),
+                      iters=10, reps=10) if b2b else None)
     plain_ms = cuda_ms(lambda: neighbors.brute_radius_neighbors_plain(*args),
                        iters=plain_iters, warmup=1)
     bnd = search_bound(args)
-    filled = (got < ns).sum(-1).float()
-    log(f"    {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-        f"{bnd[0]:.4f} ms ({bnd[1]}; {bnd[0] / ms * 100:.1f} % of it); "
-        f"mean neighbors {float(filled[q_mask].mean()):.1f}, rows full "
-        f"{float((filled[q_mask] == k).float().mean()) * 100:.1f} %")
+    filled = (got < ns).sum(-1).float()[q_mask]
+    before = FIRST_DESIGN_MS.get(name)
+    vs = (f" (first design: {before:.4f}, {ms / before:.2f}x)" if before
+          else "")
+    b2b_text = f" (back to back {b2b_ms:.4f})" if b2b else ""
+    log(f"    {name}: kernel {ms:.4f} ms{b2b_text}{vs}, plain "
+        f"{plain_ms:.3f} ms; "
+        f"bounds: culled {bnd['culled_bound_ms']:.4f} ms "
+        f"({_share(bnd['culled_bound_ms'], ms)}), bytes "
+        f"{bnd['bytes_bound_ms']:.4f} ms ({_share(bnd['bytes_bound_ms'], ms)}"
+        f"), brute {bnd['brute_bound_ms']:.4f} ms; culled candidates "
+        f"{bnd['culled_candidates'] / max(bnd['candidates'], 1) * 100:.1f} % "
+        f"of valid x valid; mean neighbors {float(filled.mean()):.1f}, rows "
+        f"full {float((filled == k).float().mean()) * 100:.1f} %")
     return dict(what=name, shape=[queries.shape[0], queries.shape[1], ns, k],
                 radius=radius, key="bfloat16" if ns >= 4 * k else "float32",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd[0],
-                bound_by=bnd[1])
+                max_abs_err=err, ms=ms, back_to_back_ms=b2b_ms,
+                plain_ms=plain_ms, **bnd)
+
+
+def threshold_shells(r, k, roll, device="cpu"):
+    """Queries near the origin with supports in tight clusters of 128 at r
+    sqrt(1.004) (1 -+ 2^-8), the edge of the threshold, and at finer steps
+    of 2^-12 across it, where a bf16 key accepts distances above the fp32
+    threshold; a cluster a kernel tile, or (roll) each tile over two
+    clusters: (queries, q_mask, supports, s_mask, r, k), 100 m from the
+    origin in the second cloud."""
+    import torch
+
+    rng = np.random.RandomState(5)
+    rho = r * np.sqrt(1.004)
+    centers = rng.uniform(-0.2, 0.2, (6, 3))
+    steps = [1 - 2.0 ** -8, 1 + 2.0 ** -8] + [1 + j * 2.0 ** -12
+                                              for j in range(-6, 7)]
+    clusters = []
+    for c in centers:
+        for f in steps:
+            u = rng.randn(3)
+            u /= np.linalg.norm(u)
+            clusters.append(c + rho * f * u + rng.randn(128, 3) * 1e-7)
+    s = np.roll(np.concatenate(clusters), roll, axis=0)
+    q = np.repeat(centers, 8, 0)
+    qs = np.stack([q, q + 100.0]).astype(np.float32)
+    ss = np.stack([s, s + 100.0]).astype(np.float32)
+    return (torch.from_numpy(qs).to(device),
+            torch.ones(2, len(q), dtype=torch.bool, device=device),
+            torch.from_numpy(ss).to(device),
+            torch.ones(2, len(s), dtype=torch.bool, device=device), r, k)
+
+
+def adversarial_searches(searches):
+    """K6's cases beyond the pyramids' searches, from phase 5's searches:
+    [(name, args)]."""
+    import torch
+
+    q, qm, s, sm, r, k = searches[0][1]          # L0 neighbors
+    l3 = searches[9][1]
+    cases = [
+        ("L0 neighbors, one pair 100 m away",
+         (q[:2] + 100.0, qm[:2], s[:2] + 100.0, sm[:2], r, k)),
+        ("L0 neighbors, K 200 (above every count)",
+         (q[:2], qm[:2], s[:2], sm[:2], r, 200)),
+        ("L0 neighbors, K 256 (the most)",
+         (q[:2], qm[:2], s[:2], sm[:2], r, 256)),
+        ("a single tile, bf16 key (L3 into 100 of L3, K 16)",
+         (l3[0], l3[1], l3[2][:, :100].contiguous(),
+          l3[3][:, :100].contiguous(), l3[4], 16)),
+        ("a single tile, fp32 key (L3 into 128 of L3)",
+         (l3[0], l3[1], l3[2][:, :128].contiguous(),
+          l3[3][:, :128].contiguous(), l3[4], l3[5])),
+        ("64-bit words (Ns >= 65536: four L0 clouds as one)",
+         (q[:2, :4096].contiguous(), qm[:2, :4096].contiguous(),
+          s.reshape(2, -1, 3).contiguous(), sm.reshape(2, -1).contiguous(),
+          r, k)),
+    ]
+    for r_, k_ in ((0.0625, 32), (0.075, 32), (0.5, 200)):
+        for roll in (0, 48):
+            cases.append((f"threshold shells r {r_} K {k_} roll {roll}",
+                          threshold_shells(r_, k_, roll, DEVICE)))
+    q, qm, s, sm, r, _ = threshold_shells(0.075, 256, 48, DEVICE)
+    cases.append(("threshold shells r 0.075 K 256 on 1000 supports, fp32 "
+                  "key", (q, qm, s[:, :1000], sm[:, :1000], r, 256)))
+    return [(n, tuple(a.contiguous() if isinstance(a, torch.Tensor) else a
+                      for a in args)) for n, args in cases]
 
 
 def phase_neighbors():
     """Phase 3c: K6 against its plain version on the card, bitwise, on the
-    ten searches of phase 5's pyramid, the four of a ModelNet pair's and a
-    constructed fp32-key case (Ns < 4K); times beside the bound.  Returns
-    the kernels line's numbers."""
+    ten searches of phase 5's pyramid, the four of a ModelNet pair's, a
+    constructed fp32-key case (Ns < 4K) and the adversarial cases; times
+    beside the bounds and the first design's.  Returns the kernels line's
+    numbers."""
     import torch
 
     from regtr_tpu_torch.config import modelnet_config, threedmatch_config
@@ -867,23 +1010,34 @@ def phase_neighbors():
         f"{card_line()}):")
     main = [check_search(name, args) for name, args in searches]
     total = {key: sum(e[key] for e in main)
-             for key in ("ms", "plain_ms", "bound_ms")}
+             for key in ("ms", "back_to_back_ms", "plain_ms", "bound_ms",
+                         "brute_bound_ms", "culled_bound_ms",
+                         "bytes_bound_ms")}
     # what bounds the most of the summed bound
     total["bound_by"] = max(("operations", "bytes"), key=lambda by: sum(
         e["bound_ms"] for e in main if e["bound_by"] == by))
-    log(f"  per forward ({len(main)} launches): kernel {total['ms']:.3f} "
-        f"ms, plain {total['plain_ms']:.1f} ms, bound "
-        f"{total['bound_ms']:.3f} ms (medians of single launches, CUDA "
-        f"events)")
+    log(f"  per forward ({len(main)} launches; {card_line()}): kernel "
+        f"{total['ms']:.3f} ms (first design: "
+        f"{FIRST_DESIGN_FORWARD_MS:.3f} ms, "
+        f"{total['ms'] / FIRST_DESIGN_FORWARD_MS:.2f}x; back to back "
+        f"{total['back_to_back_ms']:.3f} ms), plain "
+        f"{total['plain_ms']:.1f} ms; bounds: culled "
+        f"{total['culled_bound_ms']:.3f} ms "
+        f"({_share(total['culled_bound_ms'], total['ms'])}), bytes "
+        f"{total['bytes_bound_ms']:.3f} ms "
+        f"({_share(total['bytes_bound_ms'], total['ms'])}), brute "
+        f"{total['brute_bound_ms']:.3f} ms (medians of single launches, "
+        f"CUDA events)")
 
     mcfg = modelnet_config(root=str(MODELNET_NO_SHARDS))
     batch, _ = collate_pairs([get_dataset(mcfg, "test")[0]],
                              [max(mcfg["buckets"])])
     log(f"  a ModelNet pair's pyramid (bucket {batch['points'].shape[1]}, "
         "the dataset's synthetic stand-in):")
-    modelnet = [check_search(name, args) for name, args in recorded_searches(
-        mcfg, torch.from_numpy(batch["points"]).to(DEVICE),
-        torch.from_numpy(batch["mask"]).to(DEVICE))]
+    modelnet = [check_search("ModelNet " + name, args)
+                for name, args in recorded_searches(
+                    mcfg, torch.from_numpy(batch["points"]).to(DEVICE),
+                    torch.from_numpy(batch["mask"]).to(DEVICE))]
 
     # the fp32 key: level 2's points as queries into 150 of level 3's
     q, qm = searches[6][1][0], searches[6][1][1]
@@ -892,7 +1046,11 @@ def phase_neighbors():
     exact = check_search("L2 into 150 of L3", (q, qm, s, sm, 0.5, 40))
     check(exact["key"] == "float32", "the constructed case takes the fp32 "
           "key")
-    return dict(main=main, total=total, modelnet=modelnet, exact=exact)
+    log("  adversarial cases:")
+    adversarial = [check_search(name, args, plain_iters=1, iters=5, b2b=False)
+                   for name, args in adversarial_searches(searches)]
+    return dict(main=main, total=total, modelnet=modelnet, exact=exact,
+                adversarial=adversarial)
 
 
 def phase_bench(pairs_per_s):
@@ -4841,7 +4999,7 @@ def main():
              **searches["total"], library_ms=None,
              per_search=searches["main"], modelnet_searches=searches[
                  "modelnet"], other_shapes=[searches["exact"]],
-             bench=bench),
+             adversarial=searches["adversarial"], bench=bench),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -43,7 +43,9 @@ Rows and segsum time single launches (chip_smoke.py's `ms`) and runs of 10
 back-to-back calls.  Neighbors: K6 on the ten searches of chip_smoke.py
 phase 5's pyramid (4 pairs of synthetic scans at bucket 20480) and the four
 of a ModelNet pair's, each variant's table against the plain version's,
-single launches in two turns with the bound beside them.  Step profile: the
+single launches in two turns with the culled, bytes and brute bounds
+beside them; a parent of the first design, whose C entry takes no
+scratch, is called as it was.  Step profile: the
 training step's backward (the shipped config, chip_smoke.py phase 6's
 batch; 2 warm-up steps, then torch.profiler over 3 backwards) with the
 port imported from TREE (the root of a checkout, e.g. a parent commit
@@ -223,66 +225,49 @@ SEGSUM_VARIANTS = {
                       "diagnostic: the rows are left in the atomics' order"),
 }
 
-# K6 (csrc/neighbors.cu): the sorted insertion of the shipped source
-_K6_INSERT = """          if (take) {
-            const uint64_t c = ((uint64_t)key << 32) | (uint32_t)(base + t);
-            int pos = count < k ? count : k - 1;
-            while (pos > 0 && list[pos - 1] > c) {
-              list[pos] = list[pos - 1];
-              --pos;
-            }
-            list[pos] = c;
-            if (count < k) ++count;
-            if (count == k)
-              lim = hot_bound<kBf16>(unordered((uint32_t)(list[k - 1] >> 32)));
-          }"""
-_K6_APPEND = """          if (take && count < k) {
-            list[count++] = ((uint64_t)key << 32) | (uint32_t)(base + t);
-            if (count == k) {
-              for (int a = 1; a < k; ++a) {
-                const uint64_t c = list[a];
-                int j = a;
-                for (; j > 0 && list[j - 1] > c; --j) list[j] = list[j - 1];
-                list[j] = c;
-              }
-              lim = hot_bound<kBf16>(unordered((uint32_t)(list[k - 1] >> 32)));
-            }
-          } else if (take) {
-            const uint64_t c = ((uint64_t)key << 32) | (uint32_t)(base + t);
-            int pos = k - 1;
-            for (; pos > 0 && list[pos - 1] > c; --pos) list[pos] = list[pos - 1];
-            list[pos] = c;
-            lim = hot_bound<kBf16>(unordered((uint32_t)(list[k - 1] >> 32)));
-          }"""
-_K6_END = "  if (i < nq)\n    for (int j = 0; j < k; ++j)\n      row[j] ="
-_K6_END_SORTED = """  if (count < k)
-    for (int a = 1; a < count; ++a) {
-      const uint64_t c = list[a];
-      int j = a;
-      for (; j > 0 && list[j - 1] > c; --j) list[j] = list[j - 1];
-      list[j] = c;
-    }
-""" + _K6_END
+# K6 (csrc/neighbors.cu): the team, the launch bounds, the culling test's
+# verdict and the insertion's ballot in the shipped source
+def _k6_team(t):
+    """Teams of t lanes (32 / t queries a warp) where k <= 64; a warp a
+    query for k > 64, as shipped."""
+    return [("constexpr int kTeam = 32;", f"constexpr int kTeam = {t};"),
+            ("launch_search<kTeam, slots_for(kTeam, 256)",
+             "launch_search<32, slots_for(32, 256)")]
+
+
 NEIGHBOR_VARIANTS = {
     "shipped": ([], "the committed source"),
-    "threads_128": ([("  while (threads > 32 &&", "  while (false &&")],
-                    "128 queries a block at every shape (the first design)"),
-    "unroll_4": ([("#pragma unroll 8", "#pragma unroll 4")],
-                 "the scan unrolled 4 times (the first design)"),
-    "unroll_16": ([("#pragma unroll 8", "#pragma unroll 16")],
-                  "the scan unrolled 16 times"),
-    "append_sort": ([(_K6_INSERT, _K6_APPEND), (_K6_END, _K6_END_SORTED)],
-                    "append until the list is full, sort it then and at "
-                    "the end"),
-    "tile_2048": ([("constexpr int kTile = 1024;",
-                    "constexpr int kTile = 2048;")],
-                  "tiles of 2048 supports (32 KB; the first design)"),
-    "tile_512": ([("constexpr int kTile = 1024;",
-                   "constexpr int kTile = 512;")],
-                 "tiles of 512 supports (8 KB)"),
-    "no_insert": ([(_K6_INSERT, "          count += take;")],
-                  "diagnostic: nothing is kept: the scan and the exact "
-                  "test alone"),
+    "no_culling": ([("  return gap2 <= __fadd_ru(lim, margin);",
+                     "  return true;")],
+                   "every tile scanned (tiles without a valid support "
+                   "skipped, as in the first design)"),
+    "team_1": (_k6_team(1), "T = 1: one lane a query, its whole list in "
+                            "its registers"),
+    "team_4": (_k6_team(4), "T = 4: 8 queries a warp"),
+    "team_8": (_k6_team(8), "T = 8"),
+    "team_16": (_k6_team(16), "T = 16: 2 queries a warp"),
+    "min_blocks_1": ([("constexpr int kMinBlocks = 8;",
+                       "constexpr int kMinBlocks = 1;")],
+                     "no register cap below 255 (the launch bounds' "
+                     "second argument 1)"),
+    "warps_2": ([("constexpr int kWarps = 4;", "constexpr int kWarps = 2;")],
+                "2 warps a block"),
+    "warps_8": ([("constexpr int kWarps = 4;", "constexpr int kWarps = 8;"),
+                 ("constexpr int kMinBlocks = 8;",
+                  "constexpr int kMinBlocks = 4;")],
+                "8 warps a block"),
+    "words_64": ([("  return bf16_key && ns < 65536;", "  return false;")],
+                 "64-bit words only (no 32-bit packing of bf16 keys)"),
+    "tile_64": ([("constexpr int kTile = 128;", "constexpr int kTile = 64;")],
+                "tiles of 64 supports"),
+    "tile_256": ([("constexpr int kTile = 128;",
+                   "constexpr int kTile = 256;")], "tiles of 256 supports"),
+    "keeps_nothing": ([("(__ballot_sync(kFull, w < worst) >> team_base) & "
+                        "team_bits;",
+                        "0u;\n            list[0] ^= (W)(w < worst);")],
+                      "diagnostic: nothing is inserted (the bound never "
+                      "tightens): the culling, the scan and the exact test "
+                      "alone"),
 }
 
 # kind -> (source, variants, kernels whose D = 32 / fp32 ptxas lines print)
@@ -297,7 +282,8 @@ KINDS = {
     "segsum": ("segsum.cu", SEGSUM_VARIANTS,
                ["segsum_kernelIf", "transpose_"]),
     "neighbors": ("neighbors.cu", NEIGHBOR_VARIANTS,
-                  ["brute_neighbors_kernelILi64ELb1E"]),
+                  ["brute_neighbors_kernelILi64ELb1E", "pack_kernel",
+                   "search_kernelILi32ELi2EjLb1E"]),
 }
 
 
@@ -362,6 +348,10 @@ def build(parent, kind, only=None):
                 and not _parent_form(sources[name])):
             _declare_sorted_form(lib, kind)
             lib.sorted_form = True
+        elif kind == "neighbors" and not hasattr(
+                lib, "regtr_neighbors_scratch_bytes"):
+            _declare_unculled_form(lib)
+            lib.unculled_form = True
         else:
             declare(lib)
         libs[name] = lib
@@ -385,6 +375,16 @@ def _declare_sorted_form(lib, kind):
         lib.regtr_segsum.restype = ctypes.c_int
     else:
         raise ValueError(f"--parent of another form for {kind}")
+
+
+def _declare_unculled_form(lib):
+    """The first design of the brute search (one thread a query, no
+    pre-pass): its C entry takes no scratch."""
+    lib.regtr_brute_neighbors.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3
+        + [ctypes.c_int, ctypes.c_float, ctypes.c_int]
+        + [ctypes.c_void_p] * 2)
+    lib.regtr_brute_neighbors.restype = ctypes.c_int
 
 
 def _check(err):
@@ -777,10 +777,16 @@ def run_search(lib, args):
     q, qm, s, sm, radius, k = args
     b, nq, ns = q.shape[0], q.shape[1], s.shape[1]
     out = torch.empty((b, nq, k), dtype=torch.int64, device=q.device)
-    _check(lib.regtr_brute_neighbors(
-        q.data_ptr(), qm.data_ptr(), s.data_ptr(), sm.data_ptr(), b, nq, ns,
-        k, acceptance_threshold(radius), int(ns >= 4 * k), out.data_ptr(),
-        torch.cuda.current_stream().cuda_stream))
+    head = (q.data_ptr(), qm.data_ptr(), s.data_ptr(), sm.data_ptr(), b, nq,
+            ns, k, acceptance_threshold(radius), int(ns >= 4 * k),
+            out.data_ptr())
+    stream = torch.cuda.current_stream().cuda_stream
+    if getattr(lib, "unculled_form", False):
+        _check(lib.regtr_brute_neighbors(*head, stream))
+        return out
+    scratch = torch.empty(lib.regtr_neighbors_scratch_bytes(b, ns),
+                          dtype=torch.uint8, device=q.device)
+    _check(lib.regtr_brute_neighbors(*head, scratch.data_ptr(), stream))
     return out
 
 
@@ -819,9 +825,12 @@ def main_neighbors(libs):
                 lib = libs[v]
                 times.setdefault(v, []).append(
                     cuda_ms(lambda: run_search(lib, args)))
-            bnd = chip_smoke.search_bound(args)[0]
+            bnd = chip_smoke.search_bound(args)
             print(f"  {name} {list(args[0].shape[:2])} x {args[2].shape[1]}"
-                  f", K {args[5]} (bound {bnd:.4f}):")
+                  f", K {args[5]} (bounds: culled "
+                  f"{bnd['culled_bound_ms']:.4f}, bytes "
+                  f"{bnd['bytes_bound_ms']:.4f}, brute "
+                  f"{bnd['brute_bound_ms']:.4f}):")
             for v, turns in times.items():
                 sums[v] = sums.get(v, 0.0) + sum(turns) / 2
                 print(f"    {v}: " + " / ".join(f"{t:.4f}" for t in turns)

@@ -10,7 +10,10 @@ Three searches, as in the JAX package (`neighbor_method`):
     expansion, selection on their bf16 rounding (on the fp32 values when
     Ns < 4K).  The JAX version selects with `jax.lax.approx_min_k`, the
     TPU's own partial reduction; here a CUDA tensor launches the K6 kernel
-    (csrc/neighbors.cu) and a CPU tensor takes the plain version
+    (csrc/neighbors.cu: tiles of supports culled by bounding boxes, each
+    query's list spread over the registers of a warp; `tile_may_accept`
+    below mirrors its culling test for the tests) and a CPU tensor takes
+    the plain version
     (`brute_radius_neighbors_plain`), which computes the same bits: the
     K nearest by (key, support id), so that equal keys go lowest id
     first (`jax.lax.top_k`'s rule).  Ties in bf16 at the K-th slot may
@@ -47,8 +50,10 @@ def _declare(lib):
     lib.regtr_brute_neighbors.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3
         + [ctypes.c_int, ctypes.c_float, ctypes.c_int]
-        + [ctypes.c_void_p] * 2)
+        + [ctypes.c_void_p] * 3)
     lib.regtr_brute_neighbors.restype = ctypes.c_int
+    lib.regtr_neighbors_scratch_bytes.argtypes = [ctypes.c_longlong] * 2
+    lib.regtr_neighbors_scratch_bytes.restype = ctypes.c_longlong
     lib.regtr_neighbors_max_k.argtypes = []
     lib.regtr_neighbors_max_k.restype = ctypes.c_int
 
@@ -129,6 +134,59 @@ def acceptance_threshold(radius: float) -> float:
     return float(np.float32(radius * radius) * np.float32(1.004))
 
 
+# The kernel's tile culling (csrc/neighbors.cu), mirrored for the tests
+# and for chip_smoke.py's culled bound: no path runs these.
+TILE = 128                  # kTile: supports a tile, one bounding box each
+MARGIN_SCALE = 2.0 ** -20   # kMarginScale: the rounding margin's factor
+MARGIN_FLOOR = 1e-36        # kMarginFloor
+
+
+def hot_bound(t: float, bf16_key: bool) -> float:
+    """The kernel's bound on the distance of a support whose key is <= t:
+    t widened by a bf16 step (2^-7 |t|, and 1e-37) for a bf16 key, in fp32
+    as the kernel rounds it."""
+    t = np.float32(t)
+    if not bf16_key:
+        return float(t)
+    return float((t + np.float32(abs(t)) * np.float32(0.0078125))
+                 + np.float32(1e-37))
+
+
+def run_boxes(points: torch.Tensor, mask: torch.Tensor, size: int):
+    """The boxes of runs of `size` consecutive points of each cloud:
+    (B, N, 3), (B, N) -> lo, hi (B, ceil(N / size), 3) float64, the min and
+    max corner of each run's valid points (+inf / -inf where it has none):
+    the kernel's tile boxes (size TILE), and its warps' query boxes (size
+    1: a warp a query; 32 / T for kernel_variants.py's teams of T)."""
+    b, n, _ = points.shape
+    pad = -n % size
+    p = torch.cat([points.double(), points.new_zeros(b, pad, 3).double()], 1)
+    m = torch.cat([mask, mask.new_zeros(b, pad)], 1)[..., None]
+    p, m = p.reshape(b, -1, size, 3), m.reshape(b, -1, size, 1)
+    inf = torch.tensor(float("inf"), dtype=torch.float64, device=p.device)
+    return (torch.where(m, p, inf).amin(2), torch.where(m, p, -inf).amax(2))
+
+
+def tile_may_accept(q_lo, q_hi, s_lo, s_hi, lim: float) -> torch.Tensor:
+    """The kernel's culling test in float64 (`tile_may_accept` of
+    csrc/neighbors.cu): whether a support in the box [s_lo, s_hi] may have a
+    computed distance <= lim from a query in [q_lo, q_hi], i.e. the squared
+    gap between the boxes is <= lim + 2^-20 (|q|^2 + |s|^2) + 1e-36, the
+    norms bounded by the boxes' farthest corners.  Boxes broadcast over
+    leading axes (..., 3); an empty box (lo > hi) accepts nothing.  The
+    kernel rounds the gap down and the right side up, so it keeps every
+    pair this keeps."""
+    gap = torch.maximum(q_lo - s_hi, s_lo - q_hi).clamp_min(0.0)
+    gap2 = (gap * gap).sum(-1)
+
+    def norm2(lo, hi):
+        return (torch.maximum(lo.abs(), hi.abs()) ** 2).sum(-1)
+
+    margin = MARGIN_SCALE * (norm2(q_lo, q_hi) + norm2(s_lo, s_hi))
+    full = (q_lo[..., 0] <= q_hi[..., 0]) & (s_lo[..., 0] <= s_hi[..., 0])
+    return full & (gap2 <= lim + margin + MARGIN_FLOOR)
+
+
 def check_kernel_inputs(queries, q_mask, supports, s_mask, k: int) -> None:
     """Raise ValueError unless the kernel takes these inputs: queries (B,
     Nq, 3) and supports (B, Ns, 3) fp32, q_mask (B, Nq) and s_mask (B, Ns)
@@ -154,9 +212,11 @@ def brute_radius_neighbors(queries: torch.Tensor, q_mask: torch.Tensor,
                            supports: torch.Tensor, s_mask: torch.Tensor,
                            radius: float, k: int,
                            query_chunk: int = 4096) -> torch.Tensor:
-    """The brute search: on CUDA tensors the K6 kernel (one launch over
-    the whole batch; `.launches` counts them), on CPU tensors the plain
-    version (which alone reads `query_chunk`); any other device raises.
+    """The brute search: on CUDA tensors the K6 kernel (one search over
+    the whole batch, its tile pre-pass and scan on the current stream,
+    scratch from torch.empty; `.launches` counts one a search), on CPU
+    tensors the plain version (which alone reads `query_chunk`); any other
+    device raises.
 
     Shapes as `brute_radius_neighbors_plain`; the kernel's inputs as
     `check_kernel_inputs` says -> (B, Nq, k) int64, shadow entries = Ns.
@@ -174,11 +234,14 @@ def brute_radius_neighbors(queries: torch.Tensor, q_mask: torch.Tensor,
         return out.fill_(0)
     if out.numel() == 0:
         return out
+    lib = NEIGHBORS_LIBRARY.load()
+    scratch = torch.empty(lib.regtr_neighbors_scratch_bytes(b, ns),
+                          dtype=torch.uint8, device=queries.device)
     with torch.cuda.device(queries.device):
-        err = NEIGHBORS_LIBRARY.load().regtr_brute_neighbors(
+        err = lib.regtr_brute_neighbors(
             queries.data_ptr(), q_mask.data_ptr(), supports.data_ptr(),
             s_mask.data_ptr(), b, nq, ns, k, acceptance_threshold(radius),
-            int(ns >= 4 * k), out.data_ptr(),
+            int(ns >= 4 * k), out.data_ptr(), scratch.data_ptr(),
             torch.cuda.current_stream(queries.device).cuda_stream)
     NEIGHBORS_LIBRARY.check(err, "brute neighbor search")
     brute_radius_neighbors.launches += 1

@@ -6,14 +6,18 @@ The kernel itself runs only on a card (tests/test_torch_cuda.py, and
 chip_smoke.py phase 3c, hold it bitwise to the plain version there).
 """
 import ctypes
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from regtr_tpu.ops import neighbors as jnb
 from regtr_tpu_torch.config import threedmatch_config
+from regtr_tpu_torch.data.rooms import padded_pairs
 from regtr_tpu_torch.ops import neighbors, pyramid
 from tests.test_torch_pyramid import assert_tables_match, padded_batch
 
@@ -181,3 +185,193 @@ def test_plain_matches_jax_on_room_like_clouds(n, k, radius):
     assert_tables_match(got, ref, q, pts, radius)
     # rows whose K fills, where the tie order decides
     assert ((got < n).sum(-1) == k).any()
+
+
+# --- the kernel's tile culling (csrc/neighbors.cu `tile_may_accept`),
+# through its float64 mirror in ops/neighbors.py.  These tests cover the
+# margin's mathematics: that a box test with this margin, at these grains,
+# keeps every pair the plain version accepts.  The kernel's own fp32 test
+# (its directed roundings, its norm bound, the limit it tightens while it
+# scans) runs only on a card, where tests/test_torch_cuda.py and
+# chip_smoke.py phase 3c hold its tables bitwise to the plain version on
+# the same kinds of clouds.
+
+CSRC = Path(__file__).resolve().parent.parent / "regtr_tpu_torch" / "csrc"
+
+
+def _recorded_searches(pts, mask, cfg):
+    """The brute searches one pyramid of cfg makes over (pts, mask), in
+    build_pyramid's order: [(queries, q_mask, supports, s_mask, r, k)]."""
+    return [args for _, args in chip_smoke.recorded_searches(
+        cfg, torch.from_numpy(pts), torch.from_numpy(mask))]
+
+
+def _rooms(offset=0.0):
+    """One pair of room scans (data/rooms.py) at bucket 2048, moved by
+    `offset` metres along every axis."""
+    pts, mask = padded_pairs(1, 1800, 3, 2048)
+    return pts + np.float32(offset), mask
+
+
+def _corner_clusters():
+    """Two clouds of clusters at the corners of the 10-bit voxel key grid
+    (1024 voxels of 2.5 cm a side) and beyond it, where the keys clamp."""
+    rng = np.random.RandomState(4)
+    corners = np.array([[0, 0, 0], [1, 1, 1], [1, 0, 1], [0, 1, 0],
+                        [1.2, 1.2, 1.2]]) * 1024 * 0.025
+    pts = np.zeros((2, 1024, 3), np.float32)
+    mask = np.zeros((2, 1024), bool)
+    for i in range(2):
+        c = np.repeat(corners, 200, 0)
+        pts[i, :1000] = c + rng.uniform(-0.15, 0.15, c.shape)
+        mask[i, :1000] = True
+    return pts, mask
+
+
+def _accepted(queries, q_mask, supports, s_mask, radius, k):
+    """Every (query, support) pair whose key passes the threshold, by the
+    plain version's arithmetic: (B, Nq, Ns) bool."""
+    ns = supports.shape[1]
+    qx, qy, qz = (c[..., None] for c in queries.unbind(-1))
+    sx, sy, sz = (c[:, None, :] for c in supports.unbind(-1))
+    d = (neighbors._sq3(qx, qy, qz) - 2.0 * ((qx * sx + qy * sy) + qz * sz)
+         ) + neighbors._sq3(sx, sy, sz)
+    key = d.to(torch.bfloat16).float() if ns >= 4 * k else d
+    thr = torch.tensor(neighbors.acceptance_threshold(radius))
+    return (key <= thr) & q_mask[..., None] & s_mask[:, None, :]
+
+
+def _kept_pairs(queries, q_mask, supports, s_mask, radius, k, q_block,
+                s_tile):
+    """The (query, support) pairs of the (block, tile) pairs the culling
+    test keeps, at the hot loop's first bound: (B, Nq, Ns) bool."""
+    lim = neighbors.hot_bound(neighbors.acceptance_threshold(radius),
+                              supports.shape[1] >= 4 * k)
+    q_lo, q_hi = neighbors.run_boxes(queries, q_mask, q_block)
+    s_lo, s_hi = neighbors.run_boxes(supports, s_mask, s_tile)
+    keep = neighbors.tile_may_accept(q_lo[:, :, None], q_hi[:, :, None],
+                                     s_lo[:, None], s_hi[:, None], lim)
+    nq, ns = queries.shape[1], supports.shape[1]
+    qi = torch.arange(nq) // q_block
+    si = torch.arange(ns) // s_tile
+    return keep[:, qi][:, :, si]
+
+
+CULL_CASES = {
+    "rooms": lambda: _recorded_searches(*_rooms(), threedmatch_config()),
+    "rooms_100m": lambda: _recorded_searches(*_rooms(100.0),
+                                             threedmatch_config()),
+    "key_grid_corners": lambda: _recorded_searches(*_corner_clusters(),
+                                                   threedmatch_config())[:4],
+    # bf16 keys at three radii (at 0.075 the fp32 threshold lies below the
+    # midpoint of its bf16 neighbours, so keys accept distances above it),
+    # and the fp32 key (Ns < 4k)
+    "threshold_shell": lambda: [chip_smoke.threshold_shells(r, k, roll)
+                                for r, k in (
+        (0.0625, 32), (0.075, 32), (0.5, 200), (0.0625, 3000))
+        for roll in (0, 48)],
+}
+# (queries a warp, supports a tile): the kernel's warp a query,
+# kernel_variants.py's teams of 4 and 1 lanes, and chip_smoke.py's culled
+# bound (32 x 32)
+GRAINS = [(1, neighbors.TILE), (8, neighbors.TILE), (32, neighbors.TILE),
+          (32, 32)]
+
+
+@pytest.mark.parametrize("grain", GRAINS, ids=lambda g: f"{g[0]}x{g[1]}")
+@pytest.mark.parametrize("case", list(CULL_CASES))
+def test_culling_never_drops_an_accepted_support(case, grain):
+    searches = CULL_CASES[case]()
+    culled = 0
+    for args in searches:
+        acc = _accepted(*args)
+        kept = _kept_pairs(*args, *grain)
+        assert not (acc & ~kept).any(), (
+            f"{int((acc & ~kept).sum())} accepted pairs in culled tiles")
+        # the plain version's table lies in kept pairs too
+        table = neighbors.brute_radius_neighbors_plain(*args)
+        ns = args[2].shape[1]
+        b, q, j = torch.nonzero(table < ns, as_tuple=True)
+        assert kept[b, q, table[b, q, j]].all()
+        culled += int((~kept & args[1][..., None] & args[3][:, None]).sum())
+    if case == "rooms":
+        assert culled > 0        # the test has something to rule out
+
+
+def test_culling_margin_covers_the_offset_clouds():
+    # 100 m from the origin the margin (2^-20 (|q|^2 + |s|^2) ~ 0.06 m^2)
+    # exceeds level 0's r^2 (0.0039 m^2): the kernel keeps twice the
+    # candidates of the same clouds at the origin, and drops none
+    # (test_culling_never_drops_an_accepted_support[rooms_100m-*]).
+    near, far = (_recorded_searches(*_rooms(off), threedmatch_config())[0]
+                 for off in (0.0, 100.0))
+    share = []
+    for args in (near, far):
+        valid = args[1][..., None] & args[3][:, None]
+        kept = _kept_pairs(*args, 8, neighbors.TILE) & valid
+        share.append(float(kept.sum() / valid.sum()))
+    assert share[0] < 0.5 < share[1] and share[1] > 2 * share[0]
+    q = far[0][far[1]].double()
+    margin = neighbors.MARGIN_SCALE * 2 * float((q * q).sum(-1).min())
+    assert margin > 10 * far[4] ** 2
+
+
+def _source_constant(name):
+    text = (CSRC / "neighbors.cu").read_text()
+    m = re.search(rf"constexpr \w+ {name} = ([0-9.e+-]+)f?;", text)
+    assert m, name
+    return float(m.group(1))
+
+
+def test_mirrors_hold_the_sources_constants():
+    assert _source_constant("kTile") == neighbors.TILE
+    assert _source_constant("kMarginScale") == neighbors.MARGIN_SCALE
+    assert np.float32(_source_constant("kMarginFloor")) == np.float32(
+        neighbors.MARGIN_FLOOR)
+
+
+@pytest.mark.parametrize("size", [1, 32, neighbors.TILE])
+def test_run_boxes_are_the_runs_valid_corners(size):
+    rng = np.random.RandomState(7)
+    n = 3 * neighbors.TILE + 5
+    pts = rng.uniform(-50, 50, (2, n, 3)).astype(np.float32)
+    mask = rng.uniform(size=(2, n)) < 0.7
+    mask[0, :size] = False          # a run with no valid point
+    lo, hi = neighbors.run_boxes(torch.from_numpy(pts),
+                                 torch.from_numpy(mask), size)
+    assert lo.shape == hi.shape == (2, -(-n // size), 3)
+    assert lo.dtype == hi.dtype == torch.float64
+    for b in range(2):
+        for r in range(lo.shape[1]):
+            run = slice(r * size, (r + 1) * size)
+            valid = pts[b, run][mask[b, run]].astype(np.float64)
+            if len(valid):
+                np.testing.assert_array_equal(lo[b, r], valid.min(0))
+                np.testing.assert_array_equal(hi[b, r], valid.max(0))
+            else:
+                assert (lo[b, r] == np.inf).all()
+                assert (hi[b, r] == -np.inf).all()
+    # an empty run's box accepts nothing, whatever the limit
+    keep = neighbors.tile_may_accept(lo[0, :1], hi[0, :1], lo[1], hi[1],
+                                     1e30)
+    assert not keep.any()
+
+
+def test_hot_bound_covers_every_distance_a_key_accepts():
+    rng = np.random.RandomState(6)
+    for t in np.concatenate([rng.uniform(1e-4, 1.5, 200),
+                             -rng.uniform(1e-9, 1e-4, 50)]).astype(np.float32):
+        lim = neighbors.hot_bound(float(t), True)
+        key = np.float32(_bf16(t))
+        # the bf16 value above the key, and the largest fp32 that rounds
+        # to the key or below: the midpoint (exact in fp32), or the float
+        # under it where the tie goes up
+        bits = key.view(np.uint32)
+        above = (bits + np.uint32(0x10000) if key > 0
+                 else bits - np.uint32(0x10000)).view(np.float32)
+        probe = np.float32((np.float64(key) + np.float64(above)) / 2)
+        if _bf16(probe) > key:
+            probe = np.nextafter(probe, np.float32(-np.inf),
+                                 dtype=np.float32)
+        assert _bf16(probe) <= key and probe <= lim
+        assert neighbors.hot_bound(float(t), False) == float(t)
