@@ -9,7 +9,9 @@ The forward is four stages, each a method so a caller can time them:
 and positional embedding), `condition` (cross-attention transformer) and
 `head_and_pose` (correspondence head and the weighted Kabsch solve over all
 layers and pairs).  `compute_loss` adds the training losses on top of the
-forward.
+forward.  Each stage, the forward and the losses open a profiler span
+(utils/profiling.py `span`: `regtr.pyramid`, ... `regtr.losses`), which
+costs one flag check with no profiler running.
 
 Randomness is explicit, as in the JAX package's `apply(..., rngs=...)`: a
 call that is not deterministic with `dropout` > 0 needs a
@@ -43,6 +45,7 @@ from ..nn.pos_embed import (PositionEmbeddingCoordsSine,
                              PositionEmbeddingLearned)
 from ..nn.transformer import TransformerCrossEncoder
 from ..ops.pyramid import PyramidSpec, build_pyramid, compute_overlap_pyramid
+from ..utils.profiling import span
 
 
 class RegTR(nn.Module):
@@ -90,7 +93,8 @@ class RegTR(nn.Module):
 
     def preprocess(self, points, mask):
         cfg = self.cfg
-        with torch.no_grad():   # tables and coordinates: data, not trained
+        # tables and coordinates: data, not trained
+        with span("regtr.pyramid"), torch.no_grad():
             return build_pyramid(
                 points, mask, self.spec,
                 sort_input=bool(cfg.get("sort_input", True)),
@@ -100,22 +104,30 @@ class RegTR(nn.Module):
 
     def encode(self, levels):
         """-> (feats_un (2B, Nc, D), positional embedding (2B, Nc, D))."""
-        mask = levels[0].mask
-        feats0 = mask[..., None].to(levels[0].points.dtype).expand(
-            -1, -1, self.cfg.get("in_feats_dim", 1))
-        feats_enc, _ = self.kpf_encoder(feats0, levels)
-        return self.feat_proj(feats_enc), self.pos_embed(levels[-1].points)
+        with span("regtr.backbone"):
+            mask = levels[0].mask
+            feats0 = mask[..., None].to(levels[0].points.dtype).expand(
+                -1, -1, self.cfg.get("in_feats_dim", 1))
+            feats_enc, _ = self.kpf_encoder(feats0, levels)
+            return (self.feat_proj(feats_enc),
+                    self.pos_embed(levels[-1].points))
 
     def condition(self, feats_un, pe, coarse_mask, generator=None):
         """The transformer; with a generator, its dropout is on."""
         pos = pe if self.cfg.get("transformer_encoder_has_pos_emb",
                                  True) else None
-        return self.transformer_encoder(feats_un, pos, coarse_mask,
-                                        generator)
+        with span("regtr.transformer"):
+            return self.transformer_encoder(feats_un, pos, coarse_mask,
+                                            generator)
 
     def head_and_pose(self, feats_cond, coarse_points, coarse_mask, pe):
         """The head (the decoder reads the positional embedding `pe`) and
         the pose solve."""
+        with span("regtr.head_pose"):
+            return self._head_and_pose(feats_cond, coarse_points,
+                                       coarse_mask, pe)
+
+    def _head_and_pose(self, feats_cond, coarse_points, coarse_mask, pe):
         corr, overlap_logits = self.head(feats_cond, coarse_points, pe,
                                          coarse_mask)
         src_xyz, tgt_xyz = split_pairs(coarse_points)
@@ -151,8 +163,9 @@ class RegTR(nn.Module):
     def forward(self, points, mask, deterministic: bool = True,
                 generator=None) -> Dict[str, Any]:
         """points (2B, N0, 3) fp32; mask (2B, N0) bool."""
-        return self.forward_levels(self.preprocess(points, mask),
-                                   deterministic, generator)
+        with span("regtr.forward"):
+            return self.forward_levels(self.preprocess(points, mask),
+                                       deterministic, generator)
 
     def forward_levels(self, levels, deterministic: bool = True,
                        generator=None) -> Dict[str, Any]:
@@ -193,8 +206,12 @@ class RegTR(nn.Module):
         feature loss (InfoNCE, circle or sampled circle) on conditioned and
         unconditioned features, and the bidirectional overlap-weighted
         correspondence loss."""
-        cfg = self.cfg
         out = self.forward_levels(levels, deterministic, generator)
+        with span("regtr.losses"):
+            return self._losses(levels, out, pose_gt, overlap0), out
+
+    def _losses(self, levels, out, pose_gt, overlap0):
+        cfg = self.cfg
         num_layers = cfg["num_encoder_layers"]
         losses: Dict[str, torch.Tensor] = {}
         weights: Dict[str, float] = {}
@@ -249,4 +266,4 @@ class RegTR(nn.Module):
             weights[f"corr_{i}"] = cfg.get("wt_corr", 1.0)
 
         losses["total"] = sum(losses[k] * weights[k] for k in weights)
-        return losses, out
+        return losses

@@ -3,7 +3,9 @@
 `make_forward` is the no-gradient forward of the test protocol.  One
 training step is forward + losses, backward, and the clipped
 optimizer update, in that order: `forward_loss`, `backward` and `apply`,
-which `make_train_step` chains and a caller may also time one by one.  It
+which `make_train_step` chains and a caller may also time one by one; each
+opens a profiler span (`regtr.train_step` over `regtr.forward_loss`,
+`regtr.backward` and `regtr.optimizer`, utils/profiling.py `span`).  It
 is one eager program: the JAX package's split into three jitted programs
 works around an XLA schedule and has no counterpart here.
 
@@ -31,6 +33,7 @@ import torch
 
 from ..core.se3 import se3_compare
 from ..parallel import dist
+from ..utils.profiling import span
 from .optim import Optimizer
 
 BATCH_KEYS = ("points", "mask", "pose", "overlap0")
@@ -99,21 +102,25 @@ def forward_loss(model, batch, deterministic: bool = False):
     """-> (losses incl. 'total', outputs), recorded for the backward.  Not
     deterministic by default, as the JAX step calls compute_loss: with
     `dropout` > 0 that raises, for want of a dropout generator."""
-    return model.compute_loss(batch["points"], batch["mask"], batch["pose"],
-                              batch["overlap0"], deterministic=deterministic)
+    with span("regtr.forward_loss"):
+        return model.compute_loss(batch["points"], batch["mask"],
+                                  batch["pose"], batch["overlap0"],
+                                  deterministic=deterministic)
 
 
 def backward(optimizer: Optimizer, total: torch.Tensor):
     """Gradients of `total` for every parameter (zeros where it does not
     depend on one), summed over the ranks, and their global norm as a 0-dim
     fp32 tensor."""
-    grads = torch.autograd.grad(total, optimizer.params, allow_unused=True)
-    grads = dist.all_reduce_sum_flat(
-        [torch.zeros_like(p) if g is None else g
-         for p, g in zip(optimizer.params, grads)])
-    grad_norm = torch.linalg.vector_norm(
-        torch.stack(torch._foreach_norm(grads)))
-    return grads, grad_norm
+    with span("regtr.backward"):
+        grads = torch.autograd.grad(total, optimizer.params,
+                                    allow_unused=True)
+        grads = dist.all_reduce_sum_flat(
+            [torch.zeros_like(p) if g is None else g
+             for p, g in zip(optimizer.params, grads)])
+        grad_norm = torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(grads)))
+        return grads, grad_norm
 
 
 def apply(optimizer: Optimizer, grads: List[torch.Tensor],
@@ -123,10 +130,11 @@ def apply(optimizer: Optimizer, grads: List[torch.Tensor],
     were.  Returns whether the update was skipped (one host sync).  With
     several ranks `total` is the global loss (`global_losses`) and the
     gradients are the reduced ones, so every rank decides alike."""
-    skip = not bool(torch.isfinite(total) & torch.isfinite(grad_norm))
-    if not skip:
-        optimizer.update(grads, float(grad_norm))
-    return skip
+    with span("regtr.optimizer"):
+        skip = not bool(torch.isfinite(total) & torch.isfinite(grad_norm))
+        if not skip:
+            optimizer.update(grads, float(grad_norm))
+        return skip
 
 
 def make_train_step(model, optimizer: Optimizer, cfg):
@@ -143,15 +151,17 @@ def make_train_step(model, optimizer: Optimizer, cfg):
                          "passes no dropout rng and raises likewise)")
 
     def step(batch):
-        losses, out = forward_loss(model, batch)
-        grads, grad_norm = backward(optimizer, losses["total"])
-        losses = global_losses(losses)
-        skipped = apply(optimizer, grads, grad_norm, losses["total"])
-        metrics = {k: v.detach() for k, v in losses.items()}
-        metrics.update(registration_metrics(out["pose"], batch["pose"], cfg))
-        metrics["grad_norm"] = grad_norm
-        metrics["update_skipped"] = float(skipped)
-        return metrics
+        with span("regtr.train_step"):
+            losses, out = forward_loss(model, batch)
+            grads, grad_norm = backward(optimizer, losses["total"])
+            losses = global_losses(losses)
+            skipped = apply(optimizer, grads, grad_norm, losses["total"])
+            metrics = {k: v.detach() for k, v in losses.items()}
+            metrics.update(registration_metrics(out["pose"], batch["pose"],
+                                                cfg))
+            metrics["grad_norm"] = grad_norm
+            metrics["update_skipped"] = float(skipped)
+            return metrics
 
     return step
 

@@ -6,6 +6,14 @@ host clock on the CPU; `StageTimer.dump` appends one line of stage means to
 timings.txt in the JAX package's format.  `force` waits for the devices of
 a nested container's tensors, `bench` times a function after a warm-up
 call, and `device_trace` writes a Chrome trace with `torch.profiler`.
+
+`span(name)` marks a stretch of the program's host work for the profiler.
+The model and the training step open one at each layer boundary (every
+name starts with `regtr.`: forward, pyramid, backbone, transformer,
+head_pose, losses; train_step, forward_loss, backward, optimizer), so a
+profile, `device_trace`'s Chrome trace among them, carries them on the
+profiler's own clock beside the device's operations.  With no profiler
+running a span costs one flag check and records nothing.
 """
 from __future__ import annotations
 
@@ -120,6 +128,21 @@ def bench(fn, *args, iters: int = 10, device=None):
     for _ in range(iters):
         out = fn(*args)
     return first_s, timer.toc(out) / iters
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that records `name` as a host event of the running
+    profiler, or, with none running, a shared no-op context: no
+    allocation, no device sync.  The event is a plain host operation, not a
+    user annotation: the profiler mirrors each user annotation onto the
+    device's timeline as a span from its first operation to its last,
+    which a reader of device intervals would count as device work."""
+    if torch._C._autograd._profiler_enabled():
+        return torch._C._profiler._RecordFunctionFast(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
