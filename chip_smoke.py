@@ -22,6 +22,12 @@ non-zero without one, and without the checkout beside it).  Phases:
    beside its bound (the largest of bytes, products at the design's rate
    and exponentials) and the fp32 kernels beside their 3xTF32 and FMA
    bounds;
+3a. K1 with key extents (each slice's last valid key) against K1 without,
+   fp32, out and lse bitwise: at the inference cell's coarse level (64,
+   2240, 2240, 32) with prefix masks of 280-420 valid keys a slice, and at
+   ModelNet's shape with every key valid; the key tiles run under a
+   profiler, times of both (single launches and back to back) beside the
+   bound over the valid work;
 3b. gather kernels (K5) against index_select and torch.gather, bitwise: the
    row gather at the main path's shapes with its int32 flat ids (the
    inference feature and coordinate gathers, the training feature gather;
@@ -332,18 +338,24 @@ def bound(flops, nbytes, dtype):
                                        else "bytes")
 
 
-def attention_fwd_bounds(shape, name):
+def attention_fwd_bounds(shape, name, valid=None):
     """K1's bounds (ms): the largest of bytes, products at the design's
     instruction rate (bf16 mma, or 3xTF32 for fp32) and exponentials on
     MUFU, with its parts and the CUDA cores' FMA bound (the yardstick of an
-    FMA design) beside it."""
+    FMA design) beside it.  With `valid`, each slice's count of valid
+    queries and keys (self-attention), over the valid work alone."""
     bh, nq, nk, d = shape
     width = 2 if name == "bfloat16" else 4
-    flops = 4 * bh * nq * nk * d
+    if valid is None:
+        rows, keys, pairs = bh * nq, bh * nk, bh * nq * nk
+    else:
+        rows = keys = sum(valid)
+        pairs = sum(n * n for n in valid)
+    flops = 4 * pairs * d
     # reads q, k, v, bias once, writes out once
-    bytes_ms = (2 * bh * (nq + nk) * d * width + bh * nk * 4) / PEAK_BYTES
+    bytes_ms = (2 * (rows + keys) * d * width + keys * 4) / PEAK_BYTES
     ops_ms = flops / PEAK_FLOPS["3xtf32" if width == 4 else name]
-    exp_ms = bh * nq * nk / (EXP_PER_SM_CLOCK * SMS * SM_CLOCK_HZ)
+    exp_ms = pairs / (EXP_PER_SM_CLOCK * SMS * SM_CLOCK_HZ)
     return dict(bound_ms=max(bytes_ms, ops_ms, exp_ms) * 1e3,
                 bound_by="bytes" if bytes_ms >= max(ops_ms, exp_ms)
                 else "operations",
@@ -475,6 +487,68 @@ def phase_attention(train_n, protocol_n, trainer_shape, modelnet_shape):
                 result[(shape, name)]["fp64"] = _fp64_errors(
                     q, k, v, bias, do, scale, (dq, dk, dv, db), refs)
     return result
+
+
+def phase_key_extents(modelnet_shape):
+    """K1 with key extents against K1 with a null extent, fp32: out and
+    lse bitwise, the key tiles run (under a profiler), CUDA-event times of
+    both (medians of 30 single launches and of 30 runs of 10 back to back)
+    beside the bound over the valid work.  At the inference cell's coarse
+    level (prefix masks of 280-420 valid keys a slice: the cell's ~350 of
+    2240) and at ModelNet's shape with every key valid, where nothing is
+    left to skip and the extents must cost nothing."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from regtr_tpu_torch.ops import attention
+
+    log("== phase 3a: K1 with key extents")
+    found = []
+    for what, shape, lengths in (
+            ("inference cell", (64, 2240, 2240, 32), (280, 420)),
+            ("modelnet, every key valid", modelnet_shape, None)):
+        bh, nq, nk, d = shape
+        g = torch.Generator().manual_seed(nk)
+        q, k, v = (torch.randn(bh, nk, d, generator=g).to(DEVICE)
+                   for _ in range(3))
+        valid = (torch.full((bh,), nk) if lengths is None else
+                 torch.randint(lengths[0], lengths[1] + 1, (bh,),
+                               generator=g))
+        mask = torch.arange(nk)[None, :] < valid[:, None]
+        bias = torch.where(mask, 0.0, attention.NEG_BIAS).float().to(DEVICE)
+        ext = attention.key_extents(mask.to(DEVICE))
+        scale = d ** -0.5
+        full = attention._fwd(q, k, v, bias, scale, True)
+        attention.flash_masked_attention.key_tiles = None
+        with profile(activities=[ProfilerActivity.CPU]):
+            cut = attention._fwd(q, k, v, bias, scale, True, ext)
+        run, grid = attention.flash_masked_attention.key_tiles.tolist()
+        attention.flash_masked_attention.key_tiles = None
+        check(torch.equal(cut[0], full[0]) and torch.equal(cut[1], full[1]),
+              f"{what} {shape}: out and lse with key extents bitwise those "
+              "without")
+        times = {}
+        for how, e in (("extents", ext), ("null", None)):
+            fn = (lambda e=e: attention._fwd(q, k, v, bias, scale, False, e))
+            times[how] = (cuda_ms(fn), cuda_ms(fn, reps=10))
+        b = attention_fwd_bounds(shape, "float32", valid.tolist())
+        log(f"  {what} {shape}: valid keys {int(valid.min())}-"
+            f"{int(valid.max())} (mean {float(valid.float().mean()):.0f}); "
+            f"key tiles run {run} of {grid} ({100 * run / grid:.1f} %); "
+            f"with extents {times['extents'][0]:.4f} ms, b2b "
+            f"{times['extents'][1]:.4f}; null {times['null'][0]:.4f}, b2b "
+            f"{times['null'][1]:.4f}; bound over the valid work "
+            f"{b['bound_ms']:.4f} ({b['bound_by']}; "
+            f"{b['bound_ms'] / times['extents'][1] * 100:.1f} % of it b2b)")
+        found.append(dict(
+            what=what, shape=list(shape), dtype="float32",
+            valid_keys=[int(valid.min()), int(valid.max())],
+            key_tiles_run=run, key_tiles_grid=grid,
+            ms=times["extents"][0], back_to_back_ms=times["extents"][1],
+            null_extent_ms=times["null"][0],
+            null_extent_back_to_back_ms=times["null"][1],
+            valid_bound_ms=b["bound_ms"], valid_bound_by=b["bound_by"]))
+    return found
 
 
 def _fp64_errors(q, k, v, bias, do, scale, kernel, plain):
@@ -1261,7 +1335,7 @@ def phase_main_path():
     from regtr_tpu_torch.models import create_model
     from regtr_tpu_torch.nn import transformer
     from regtr_tpu_torch.ops.attention import (
-        flash_masked_attention, flash_masked_attention_reference)
+        flash_masked_attention, flash_masked_attention_plain)
 
     log("== phase 5: inference path (3DMatch config, bf16, bucket 20480)")
     cfg = threedmatch_config(compute_dtype="bfloat16")
@@ -1374,7 +1448,7 @@ def phase_main_path():
 
     # -- kernel path vs a forward whose attention is the plain version
     with torch.inference_mode():
-        transformer.flash_masked_attention = flash_masked_attention_reference
+        transformer.flash_masked_attention = flash_masked_attention_plain
         try:
             plain = model(pts, mask)
             torch.cuda.synchronize()
@@ -2352,8 +2426,8 @@ def held_to_plain(found, keep=None):
                  0.0 if same else max_err(out, ref), same)
         return out
 
-    def fwd(q, k, v, bias, scale, want_lse):
-        out, lse = real["fwd"](q, k, v, bias, scale, want_lse)
+    def fwd(q, k, v, bias, scale, want_lse, kv_extent=None):
+        out, lse = real["fwd"](q, k, v, bias, scale, want_lse, kv_extent)
         ref, ref_lse = attention.flash_masked_attention_reference(
             q, k, v, bias, scale, return_lse=True)
         tol = TOL[str(q.dtype)[6:]]
@@ -4816,6 +4890,7 @@ def main():
     timed("2", phase_build)
     attn = timed("3", phase_attention, train_n, protocol_n, trainer_shape,
                  modelnet_shape)
+    k1_extents = timed("3a", phase_key_extents, modelnet_shape)
     gather_rows, gather_elements = timed("3b", phase_gather, train_n0)
     searches = timed("3c", phase_neighbors)
     timed("4", phase_small_input)
@@ -4918,7 +4993,7 @@ def main():
                  for bm, r in protocol.items()},
              shape=[64, 1872, 1872, 32], dtype="bfloat16",
              other_shapes=k1_other + trainer_shape_entry("fwd"),
-             **k1["fwd"]),
+             key_extents=k1_extents, **k1["fwd"]),
         dict(name="flash_attn_bwd_dkv", row="K2", route="cuda",
              **trainer_launches("flash_attn_bwd_dkv"),
              source=src + "flash_attn_bwd.cu",

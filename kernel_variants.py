@@ -24,7 +24,12 @@ turns, in order and in reverse, with SDPA's backward as the yardstick.
 Forward: the same at the inference shape (64, 1872, 1872, 32) in bf16 and
 at the training and protocol shapes (32, 2240, 2240, 32) and (16, 2992,
 2992, 32) in fp32 (errors of out and lse against the plain version and of
-out against an fp64 forward), SDPA's forward the yardstick.  Gather: the
+out against an fp64 forward), SDPA's forward the yardstick; then with key
+extents at the inference cell's coarse level, (64, 2240, 2240, 32) fp32
+with 280-420 valid keys a slice (prefix masks), and at ModelNet's (16, 656,
+656, 32) with every key valid, each variant with and without extents
+(bitwise equal) in turns; a parent source without the extent argument is
+called as it was.  Gather: the
 element gather at the probes' (160, 32, 5120) axis 1 in fp32 and bf16,
 bitwise against torch.gather, and timed in turns with it.  Rows: the
 row gather of the inference path's coordinate rows (5 242 880 rows of 3
@@ -352,8 +357,18 @@ def build(parent, kind, only=None):
                 lib, "regtr_neighbors_scratch_bytes"):
             _declare_unculled_form(lib)
             lib.unculled_form = True
+        elif (name == "parent" and kind == "fwd"
+              and "kv_extent" not in sources[name].read_text()):
+            lib.regtr_flash_attn_fwd.argtypes = (
+                [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                + [ctypes.c_float, ctypes.c_void_p])
+            lib.regtr_flash_attn_fwd.restype = ctypes.c_int
+            lib.no_extents = True
         else:
             declare(lib)
+            # set, not looked up: a missing attribute of a CDLL is a
+            # symbol lookup, microseconds on every launch
+            lib.no_extents = False
         libs[name] = lib
     return libs
 
@@ -675,19 +690,22 @@ def run(lib, which, q, k, v, bias, do, lse, delta, scale):
     return outs
 
 
-def run_fwd(lib, q, k, v, bias, scale, want_lse):
-    """One launch of a library's forward; (out, lse or None)."""
+def run_fwd(lib, q, k, v, bias, scale, want_lse, kv_extent=None):
+    """One launch of a library's forward; (out, lse or None).  A library
+    without the extent argument is called without it."""
     import torch
 
     bh, nq, d = q.shape
     out = torch.empty_like(q)
     lse = (torch.empty((bh, nq), dtype=torch.float32, device=q.device)
            if want_lse else None)
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), None if lse is None else lse.data_ptr()]
+    if not lib.no_extents:
+        ptrs.append(None if kv_extent is None else kv_extent.data_ptr())
     err = lib.regtr_flash_attn_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), None if lse is None else lse.data_ptr(), bh, nq,
-        k.shape[1], d, int(q.dtype == torch.bfloat16), float(scale),
-        torch.cuda.current_stream().cuda_stream)
+        *ptrs, bh, nq, k.shape[1], d, int(q.dtype == torch.bfloat16),
+        float(scale), torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"launch failed: {err}")
     return out, lse
@@ -904,6 +922,77 @@ def main_forward(libs):
             print(f"  {vname}: " + "; ".join(f"{t:.4f}" for t in turns)
                   + f"  ({what})")
         print(f"  SDPA forward {lib_ms:.4f}", flush=True)
+    for shape, lengths in (((64, 2240, 2240, 32), (280, 420)),
+                           ((16, 656, 656, 32), None)):
+        forward_with_extents(libs, shape, lengths)
+
+
+def forward_with_extents(libs, shape, lengths):
+    """fp32 K1 with and without key extents: prefix masks with valid
+    lengths drawn from `lengths` (every key valid at None), out and lse
+    bitwise equal, single launches and back to back in turns."""
+    import torch
+
+    from regtr_tpu_torch.ops import attention
+
+    bh, nq, nk, d = shape
+    g = torch.Generator().manual_seed(nk)
+    q, k, v = (torch.randn(bh, nk, d, generator=g).cuda() for _ in range(3))
+    valid = (torch.full((bh,), nk) if lengths is None else
+             torch.randint(lengths[0], lengths[1] + 1, (bh,), generator=g))
+    mask = torch.arange(nk)[None, :] < valid[:, None]
+    bias = torch.where(mask, 0.0, attention.NEG_BIAS).float().cuda()
+    ext = attention.key_extents(mask.cuda())
+    scale = d ** -0.5
+    runs = {}
+    for vname, lib in libs.items():
+        runs[vname] = {"null": lambda lib=lib: run_fwd(
+            lib, q, k, v, bias, scale, False)}
+        if not lib.no_extents:
+            runs[vname]["extents"] = lambda lib=lib: run_fwd(
+                lib, q, k, v, bias, scale, False, ext)
+            out, lse = run_fwd(lib, q, k, v, bias, scale, True, ext)
+            ref, ref_lse = run_fwd(lib, q, k, v, bias, scale, True)
+            print(f"{shape} valid {lengths or 'all'}: {vname} with extents "
+                  f"bitwise {torch.equal(out, ref) and torch.equal(lse, ref_lse)}",
+                  flush=True)
+    order = [(v, how) for v in runs for how in runs[v]]
+    times = {}
+    for reps in (1, 10):
+        for key in order + order[::-1]:
+            times.setdefault((key, reps), []).append(
+                cuda_ms(runs[key[0]][key[1]], reps=reps))
+    for key in order + order[::-1]:
+        times.setdefault((key, "device"), []).append(
+            device_ms(runs[key[0]][key[1]]))
+    print(f"{shape} valid {lengths or 'all'}: forward ms in two turns "
+          "(single; back to back 10; the kernel's device time by the "
+          "profiler):")
+    for key in order:
+        print(f"  {key[0]} {key[1]}: " + "; ".join(
+            f"{t:.4f}" for t in times[(key, 1)]) + "  b2b " + "; ".join(
+            f"{t:.4f}" for t in times[(key, 10)]) + "  device " + "; ".join(
+            f"{t:.4f}" for t in times[(key, "device")]), flush=True)
+
+
+def device_ms(fn, iters=30):
+    """Median device milliseconds of the K1 launches of `iters` calls of
+    fn(), from torch.profiler's kernel events: no host time in it."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    found = [(e.end_ns() - e.start_ns()) * 1e-6
+             for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA
+             and "flash_fwd_" in e.name()]
+    return statistics.median(found) if found else float("nan")
 
 
 def main():

@@ -15,6 +15,17 @@
 // tile) are left out of the softmax entirely.  Launched on the caller's
 // stream; it allocates nothing and does not synchronise.
 //
+// Key extents (optional, (BH,) int32 on the device): one past the index of
+// each slice's last valid key.  A block then runs only the key tiles up to
+// its slice's extent, not all ceil(Nk / 64): the coarse level of a 3DMatch
+// batch holds ~350 points in slots of 2240, so 6 of 35 tiles.  The caller
+// vouches that every key at or past the extent has the masking bias.  Once
+// a row has met a valid key its running max is finite, a masked key's
+// 2^(x - m) is exactly 0 and alpha exactly 1, so the tiles left out would
+// have changed neither out nor lse in a single bit.  An extent of 0 (a slice
+// with no valid key) runs every tile, so such a slice's bias-weighted mean
+// stays as it was.  The grid is sized from the shapes alone: no host sync.
+//
 // What bounds it on an H100: the largest of
 //  * bytes: q, k, v, bias read once and out written once, over 3.35 TB/s;
 //  * products: 4 * BH * Nq * Nk * D FLOP at the rate of the instruction the
@@ -81,6 +92,9 @@
 //    wgmma form of bf16 (one warpgroup per block, A from registers, no
 //    overlap of one tile's softmax with the next tile's products) gave the
 //    same results at ~0.29 ms and is not kept; PERF.md records it.
+// With key extents, at the inference benchmark's coarse level (fp32 (64,
+// 2240, 2240, 32), 280-420 valid keys a slice, 17 % of the key tiles run):
+// ~0.18 ms back to back against ~0.95 without them.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -106,7 +120,8 @@ struct FwdArgs {
   const void *q, *k, *v;
   const float* bias;
   void* out;
-  float* lse;  // may be null
+  float* lse;            // may be null
+  const int* kv_extent;  // (BH,) key extents, or null: every slice's is nk
   int nq, nk;
   float scale_log2;  // scale * log2(e)
   bool vec16;        // q, k and v all start on 16 bytes
@@ -127,6 +142,17 @@ struct Smem {
 };
 
 // ------------------------------------------------------------ staging ---
+
+// Key tiles of slice bh that a block runs: those that start before the
+// slice's key extent, or all of them without extents or at an extent of 0.
+__device__ __forceinline__ int key_tiles(const FwdArgs& a, int bh) {
+  int n = a.nk;
+  if (a.kv_extent) {
+    const int e = a.kv_extent[bh];
+    if (e > 0) n = min(e, a.nk);
+  }
+  return (n + kBlockK - 1) / kBlockK;
+}
 
 // One tile of k, v and bias into a stage: keys past `valid` are zero rows
 // with bias -inf, so their scores are -inf and p exactly 0.
@@ -271,7 +297,7 @@ __global__ void __launch_bounds__(kThreads, D >= 64 ? 2 : 3)
   float m[2] = {-1e30f, -1e30f};  // running max, base 2 (the TPU's start)
   float l[2] = {0.f, 0.f};        // this thread's share of the running sums
 
-  const int n_tiles = (a.nk + kBlockK - 1) / kBlockK;
+  const int n_tiles = key_tiles(a, bh);
   stage_tile<float, D>(tiles, scal, a, kb, vb, bb, 0, tid);
   for (int it = 0; it < n_tiles; ++it) {
     cp_async_wait_all();
@@ -432,9 +458,10 @@ __global__ void __launch_bounds__(kThreads)
   float l[2] = {0.f, 0.f};        // this thread's share of the running sums
 
   // The ring: tile i lives in stage i % kStagesBf16; one commit group per
-  // tile (empty past the last), so waiting for all but kStagesBf16 - 2
+  // tile (empty past the last, also in the prologue when the extent leaves
+  // fewer tiles than it stages), so waiting for all but kStagesBf16 - 2
   // groups means tile `it` has landed.
-  const int n_tiles = (a.nk + kBlockK - 1) / kBlockK;
+  const int n_tiles = key_tiles(a, bh);
   auto stage = [&](int i) {
     if (i < n_tiles) {
       const int st = i % kStagesBf16;
@@ -554,17 +581,19 @@ extern "C" {
 
 // Launches on `stream`; returns the CUDA error of the launch (0 when it was
 // accepted).  is_bf16: 1 for bf16 q/k/v/out, 0 for fp32.  lse: (BH, Nq)
-// fp32, or null when the caller needs no backward.  Shapes, contiguity and
-// 4-byte alignment are checked by the caller
+// fp32, or null when the caller needs no backward.  kv_extent: (BH,) int32
+// key extents, or null for every slice's nk.  Shapes, dtypes, contiguity
+// and 4-byte alignment are checked by the caller
 // (regtr_tpu_torch/ops/attention.py).
 int regtr_flash_attn_fwd(const void* q, const void* k, const void* v,
-                         const void* bias, void* out, void* lse, int bh,
-                         int nq, int nk, int d, int is_bf16, float scale,
-                         void* stream) {
+                         const void* bias, void* out, void* lse,
+                         const void* kv_extent, int bh, int nq, int nk, int d,
+                         int is_bf16, float scale, void* stream) {
   if (bh <= 0 || nq <= 0 || nk <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const FwdArgs a{q, k, v, static_cast<const float*>(bias), out,
-                  static_cast<float*>(lse), nq, nk, scale * kLog2e,
+                  static_cast<float*>(lse),
+                  static_cast<const int*>(kv_extent), nq, nk, scale * kLog2e,
                   on16(q) && on16(k) && on16(v)};
   if (is_bf16) {
     switch (d) {

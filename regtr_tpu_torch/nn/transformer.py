@@ -17,6 +17,11 @@ dropout is off and attention goes through the kernel.
 `record_attention(model)` is the attention-map hook (the JAX modules'
 sow("intermediates", "attn")): inside it, every MultiHeadAttention also
 recomputes its probabilities explicitly and records them.
+
+The kernel route takes each slice's key extent (`ops/attention.key_extents`:
+one past its last valid key), so that the attention kernel stops there; the
+encoder derives the self- and cross-attention's extents once a forward and
+hands them to every layer.  The result is the same without them.
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.masking import NEG_INF
 from ..core.pairs import swap_pairs
-from ..ops.attention import flash_masked_attention
+from ..ops.attention import flash_masked_attention, key_extents
 
 # flax.linen.LayerNorm's epsilon (torch's default is 1e-5).
 LN_EPS = 1e-6
@@ -46,6 +51,10 @@ class MultiHeadAttention(nn.Module):
 
     While `record_attention` holds it, `record_to` is (maps, name) and each
     call also stores maps[name], its probabilities (see there).
+
+    `kv_extent`, (B * nhead,) int32, is handed to the kernel route;
+    without it, it is derived from `key_mask`.  The dense route (dropout)
+    takes no notice of it.
     """
 
     def __init__(self, d_model: int, nhead: int, compute_dtype=None,
@@ -60,7 +69,7 @@ class MultiHeadAttention(nn.Module):
         self.v_proj = nn.Linear(d_model, d_model)
         self.out_proj = nn.Linear(d_model, d_model)
 
-    def forward(self, q, k, v, key_mask, generator=None):
+    def forward(self, q, k, v, key_mask, generator=None, kv_extent=None):
         b, nq, d_model = q.shape
         nk = k.shape[1]
         h = self.nhead
@@ -85,8 +94,11 @@ class MultiHeadAttention(nn.Module):
 
         bias = torch.where(key_mask, 0.0, NEG_INF).to(torch.float32)
         bias = bias[:, None, :].expand(b, h, nk).reshape(b * h, nk)
+        if kv_extent is None:
+            kv_extent = key_extents(key_mask, h)
         o = flash_masked_attention(fold(qh), fold(kh), fold(vh),
-                                   bias.contiguous(), scale)
+                                   bias.contiguous(), scale,
+                                   kv_extent=kv_extent)
         if self.record_to is not None:
             maps, name = self.record_to
             maps[name] = attention_probabilities(qh, kh, key_mask, scale)
@@ -166,9 +178,13 @@ class CrossEncoderLayer(nn.Module):
             h, approximate="tanh")
         return self.linear2(drop(h))
 
-    def forward(self, x, pos, mask, generator=None):
+    def forward(self, x, pos, mask, generator=None, kv_extents=None):
         """x (2B, N, D) paired features, pos (2B, N, D) or None,
-        mask (2B, N); with a generator, dropout as the module says."""
+        mask (2B, N); with a generator, dropout as the module says.
+        kv_extents: (self, cross) key extents, `layer_key_extents(mask,
+        nhead)`, or None: each attention derives its own."""
+        sa_ext, ca_ext = kv_extents or (None, None)
+
         def with_pos(t):
             return t if pos is None else t + pos
 
@@ -183,26 +199,34 @@ class CrossEncoderLayer(nn.Module):
             qk = with_pos(x2)
             x = x + drop(self.self_attn(
                 qk, qk, qk if self.sa_val_has_pos_emb else x2, mask,
-                generator))
+                generator, sa_ext))
             x2 = self.norm2(x)
             x2_w_pos = with_pos(x2)
             kv_w_pos = swap_pairs(x2_w_pos)
             v = kv_w_pos if self.ca_val_has_pos_emb else swap_pairs(x2)
             x = x + drop(self.cross_attn(x2_w_pos, kv_w_pos, v, kv_mask,
-                                         generator))
+                                         generator, ca_ext))
             return x + drop(self._ffn(self.norm3(x), drop))
         qk = with_pos(x)
         x = self.norm1(x + drop(self.self_attn(
-            qk, qk, qk if self.sa_val_has_pos_emb else x, mask, generator)))
+            qk, qk, qk if self.sa_val_has_pos_emb else x, mask, generator,
+            sa_ext)))
         x_w_pos = with_pos(x)
         kv_w_pos = swap_pairs(x_w_pos)
         v = kv_w_pos if self.ca_val_has_pos_emb else swap_pairs(x)
         x = self.norm2(x + drop(self.cross_attn(x_w_pos, kv_w_pos, v,
-                                                kv_mask, generator)))
+                                                kv_mask, generator, ca_ext)))
         return self.norm3(x + drop(self._ffn(x, drop)))
 
 
-def checkpointed_layer(layer, x, pos, mask, generator=None):
+def layer_key_extents(mask, nhead: int):
+    """(self-attention's, cross-attention's) key extents of a (2B, N) mask
+    of paired clouds, each (2B * nhead,) int32: a cloud's own, and its
+    partner's (`swap_pairs`)."""
+    return key_extents(mask, nhead), key_extents(swap_pairs(mask), nhead)
+
+
+def checkpointed_layer(layer, x, pos, mask, generator=None, kv_extents=None):
     """layer(x, pos, mask, generator) under a non-reentrant
     `torch.utils.checkpoint`: its activations are recomputed in the
     backward.  The checkpoint restores torch's global random states for the
@@ -211,7 +235,8 @@ def checkpointed_layer(layer, x, pos, mask, generator=None):
     state the first call found it in, and the caller's generator moves
     only once, as without the checkpoint."""
     if generator is None:
-        return checkpoint(layer, x, pos, mask, use_reentrant=False)
+        return checkpoint(layer, x, pos, mask, None, kv_extents,
+                          use_reentrant=False)
     state = generator.get_state()
     calls = []
 
@@ -221,7 +246,7 @@ def checkpointed_layer(layer, x, pos, mask, generator=None):
             gen = torch.Generator(device=generator.device)
             gen.set_state(state)
         calls.append(1)
-        return layer(x, pos, mask, gen)
+        return layer(x, pos, mask, gen, kv_extents)
 
     return checkpoint(run, x, pos, mask, use_reentrant=False)
 
@@ -239,6 +264,7 @@ class TransformerCrossEncoder(nn.Module):
                  remat=False):
         super().__init__()
         self.num_layers = num_layers
+        self.nhead = nhead
         self.remat = remat
         for i in range(num_layers):
             self.add_module(f"layer_{i}", CrossEncoderLayer(
@@ -251,10 +277,13 @@ class TransformerCrossEncoder(nn.Module):
     def forward(self, x, pos, mask, generator=None):
         intermediates = []
         remat = self.remat and torch.is_grad_enabled()
+        # one derivation a forward for every layer's attention
+        kv_extents = layer_key_extents(mask, self.nhead)
         for i in range(self.num_layers):
             layer = getattr(self, f"layer_{i}")
-            x = (checkpointed_layer(layer, x, pos, mask, generator) if remat
-                 else layer(x, pos, mask, generator))
+            x = (checkpointed_layer(layer, x, pos, mask, generator,
+                                    kv_extents) if remat
+                 else layer(x, pos, mask, generator, kv_extents))
             intermediates.append(self.norm_final(x)
                                  if self.norm_final is not None else x)
         return torch.stack(intermediates, dim=0)

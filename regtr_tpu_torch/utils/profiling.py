@@ -133,6 +133,12 @@ def bench(fn, *args, iters: int = 10, device=None):
 _NO_SPAN = contextlib.nullcontext()
 
 
+def profiler_running() -> bool:
+    """Whether a torch.profiler is recording: the one flag that `span` and
+    the program's profile-only counters check."""
+    return torch._C._autograd._profiler_enabled()
+
+
 def span(name: str):
     """A context that records `name` as a host event of the running
     profiler, or, with none running, a shared no-op context: no
@@ -140,7 +146,7 @@ def span(name: str):
     user annotation: the profiler mirrors each user annotation onto the
     device's timeline as a span from its first operation to its last,
     which a reader of device intervals would count as device work."""
-    if torch._C._autograd._profiler_enabled():
+    if profiler_running():
         return torch._C._profiler._RecordFunctionFast(name)
     return _NO_SPAN
 

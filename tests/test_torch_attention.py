@@ -154,7 +154,7 @@ def _fma(a, b, c):
     return (a.double() * b + c.double()).float()
 
 
-def _emulated_forward(q, k, v, bias, scale, passes, tile=64):
+def _emulated_forward(q, k, v, bias, scale, passes, tile=64, kv_extent=None):
     """csrc/flash_attn_fwd.cu's arithmetic on the CPU: 64-key tiles, scores
     in base 2 with scale * log2(e) folded into one FMA and the bias
     pre-multiplied by log2(e), the running max from -1e30, 2^x for the
@@ -162,7 +162,9 @@ def _emulated_forward(q, k, v, bias, scale, passes, tile=64):
     products on the tensor cores as 3xTF32 (or one TF32 pass), p v summed
     over each tile and added to the fp32 accumulator rescaled by alpha.
     bf16 operands (passes None): bf16 products summed in fp32, p rounded to
-    bf16 before p v.  Returns (out fp32, lse)."""
+    bf16 before p v.  With `kv_extent` a slice runs only the tiles that
+    start before its extent (all of them at 0), as the kernel's blocks do.
+    Returns (out fp32, lse)."""
     from tests.test_torch_attention_bwd import _tensor_core_mm
 
     def mm(a, b):
@@ -178,17 +180,21 @@ def _emulated_forward(q, k, v, bias, scale, passes, tile=64):
     m = torch.full((bh, nq, 1), -1e30)
     l = torch.zeros(bh, nq, 1)
     acc = torch.zeros(bh, nq, d)
+    ends = torch.full((bh,), nk)
+    if kv_extent is not None:
+        ends = torch.where(kv_extent > 0, kv_extent.clamp(max=nk), nk)
     for k0 in range(0, nk, tile):
         kt, vt, bt = k[:, k0:k0 + tile], v[:, k0:k0 + tile], b2[:, k0:k0 + tile]
         x = _fma(mm(q, kt.transpose(1, 2)), c, bt[:, None, :])
         m_new = torch.maximum(m, x.amax(-1, keepdim=True))
         alpha = torch.exp2(m - m_new)
         p = torch.exp2(x - m_new)
-        l = l * alpha + p.sum(-1, keepdim=True)
+        l_new = l * alpha + p.sum(-1, keepdim=True)
         if passes is None:
             p = p.to(torch.bfloat16)
-        acc = _fma(acc, alpha, mm(p, vt))
-        m = m_new
+        runs = (k0 < ends)[:, None, None]
+        acc = torch.where(runs, _fma(acc, alpha, mm(p, vt)), acc)
+        m, l = torch.where(runs, m_new, m), torch.where(runs, l_new, l)
     lse = (m + torch.log2(l)) * float(np.log(2.0))
     return acc / l, lse[..., 0]
 
@@ -262,3 +268,136 @@ def test_kernel_numerics_bf16_match_plain_forward():
                                                     return_lse=True)
     _assert_forward_close(out.to(torch.bfloat16).float(), lse, ref.float(),
                           ref_lse, TOL["bfloat16"])
+
+
+# ------------------------------------------------------------ key extents ---
+
+def _extent_mask(case, nk):
+    """(2, nk) key masks: slice 0 and slice 1 of each case."""
+    mask = torch.zeros(2, nk, dtype=torch.bool)
+    if case == "hole":            # a whole masked tile between valid keys
+        mask[0, :10] = mask[0, 200:230] = True
+        mask[1, 130:140] = True   # the first two tiles masked
+    elif case == "no_key":        # extent 0: every tile runs
+        mask[1, :100] = True
+    else:                         # a prefix of `case` keys, and a longer one
+        n = min(case, nk)
+        mask[0, :n] = True
+        mask[1, :min(n + 37, nk)] = True
+    return mask
+
+
+@pytest.mark.parametrize("passes", [3, None])
+@pytest.mark.parametrize("case", [1, 63, 64, 65, 450, "hole", "no_key"])
+@pytest.mark.parametrize("shape", EMU_SHAPES)
+def test_key_extents_leave_the_forward_bitwise_unchanged(shape, case, passes):
+    """K1 running only the key tiles before each slice's extent gives the
+    out and lse it gives over every tile, bit for bit: past a row's first
+    valid key a masked key's 2^(x - m) is exactly 0 and alpha exactly 1.
+    The emulation of the kernel's arithmetic, with and without extents."""
+    bh, nq, nk, d = shape
+    q, k, v, _ = _emu_inputs(shape)
+    if passes is None:
+        q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    mask = _extent_mask(case, nk)
+    bias = torch.where(mask, 0.0, NEG_BIAS).float()
+    ext = attention.key_extents(mask)
+    last = [int(np.nonzero(r)[0].max()) + 1 if r.any() else 0
+            for r in mask.numpy()]
+    assert ext.dtype == torch.int32 and ext.tolist() == last
+    full = _emulated_forward(q, k, v, bias, d ** -0.5, passes)
+    cut = _emulated_forward(q, k, v, bias, d ** -0.5, passes, kv_extent=ext)
+    assert torch.equal(cut[0], full[0]) and torch.equal(cut[1], full[1])
+
+
+def _lengths_mask(case, n, rng):
+    if case == "non_prefix":
+        mask = rng.rand(4, n) > 0.5
+        mask[1, 30:] = False
+        mask[2, :] = False
+        mask[2, 7] = True
+        return mask
+    lengths = [40, 17, 1, 30] if case == "prefix" else [25, 0, 40, 12]
+    return np.arange(n)[None, :] < np.array(lengths)[:, None]
+
+
+@pytest.mark.parametrize("case", ["prefix", "empty_cloud", "non_prefix"])
+def test_cross_encoder_hands_each_attention_its_key_extents(case,
+                                                            monkeypatch):
+    """The encoder derives the extents once a forward: self-attention's
+    from the cloud's own mask, cross-attention's from its partner's (one
+    past the last valid index, 0 for an empty cloud), repeated over the
+    heads, the same tensors for every layer; a module called without them
+    derives the same; the output is the one without extents."""
+    from regtr_tpu_torch.nn import transformer
+
+    rng = np.random.RandomState(5)
+    nhead, n = 4, 40
+    x, pos = (torch.from_numpy(rng.randn(4, n, 32).astype(np.float32))
+              for _ in range(2))
+    mask = torch.from_numpy(_lengths_mask(case, n, rng))
+    enc = transformer.TransformerCrossEncoder(32, nhead, 2, 64)
+    seen = []
+    real = transformer.flash_masked_attention
+
+    def recorded(*args, kv_extent=None):
+        seen.append(kv_extent)
+        return real(*args, kv_extent=kv_extent)
+
+    monkeypatch.setattr(transformer, "flash_masked_attention", recorded)
+    with torch.no_grad():
+        out = enc(x, pos, mask)
+        layer = enc.layer_0
+        alone = layer(x, pos, mask)
+    last = np.array([np.nonzero(r)[0].max() + 1 if r.any() else 0
+                     for r in mask.numpy()])
+    own = np.repeat(last, nhead)
+    partner = np.repeat(last.reshape(-1, 2)[:, ::-1].reshape(-1), nhead)
+    assert len(seen) == 2 * 2 + 2
+    for i, ext in enumerate(seen):
+        assert ext.dtype == torch.int32 and ext.shape == (4 * nhead,)
+        assert ext.tolist() == (own if i % 2 == 0 else partner).tolist()
+    assert seen[0] is seen[2] and seen[1] is seen[3]
+    monkeypatch.setattr(transformer, "flash_masked_attention",
+                        lambda *a, kv_extent=None: real(*a))
+    with torch.no_grad():
+        assert torch.equal(enc(x, pos, mask), out)
+        assert torch.equal(layer(x, pos, mask), alone)
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype", "contiguity"])
+def test_kernel_refuses_a_bad_key_extent(bad):
+    q, k, v, bias = (torch.from_numpy(x) for x in _inputs(2, 40, 40, 32, 2))
+    ext = torch.full((2,), 40, dtype=torch.int32)
+    attention._check(q, k, v, bias, ext)
+    if bad == "shape":
+        ext = torch.full((2, 1), 40, dtype=torch.int32)
+    elif bad == "dtype":
+        ext = ext.long()
+    else:
+        ext = torch.full((4,), 40, dtype=torch.int32)[::2]
+    with pytest.raises(ValueError):
+        attention._check(q, k, v, bias, ext)
+
+
+def test_key_tiles_counts_the_tiles_the_kernel_runs():
+    """The coarse level of a 3DMatch batch: ~350 valid keys of 2240 run 6
+    of 35 key tiles in each of a slice's 35 query blocks; an extent of 0
+    runs them all; no extents: the whole grid."""
+    ext = torch.tensor([350, 0, 64, 65], dtype=torch.int32)
+    run, grid = attention.key_tile_counts(ext, 4, 2240, 2240)
+    assert grid == 4 * 35 * 35
+    assert int(run) == 35 * (6 + 35 + 1 + 2)
+    assert attention.key_tile_counts(None, 4, 2240, 2240) == (grid, grid)
+    before = attention.flash_masked_attention.key_tiles
+    try:
+        attention.flash_masked_attention.key_tiles = None
+        with torch.inference_mode():   # the counter outlives the mode
+            attention._count_key_tiles(ext, 4, 2240, 2240,
+                                       torch.device("cpu"))
+        attention._count_key_tiles(ext, 4, 2240, 2240, torch.device("cpu"))
+        attention._count_key_tiles(None, 4, 2240, 2240, torch.device("cpu"))
+        assert attention.flash_masked_attention.key_tiles.tolist() == [
+            2 * int(run) + grid, 3 * grid]
+    finally:
+        attention.flash_masked_attention.key_tiles = before

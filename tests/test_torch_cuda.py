@@ -79,6 +79,67 @@ def test_flash_kernel_is_bitwise_repeatable(cuda, dtype):
     assert torch.equal(with_lse, again) and torch.equal(lse, lse_again)
 
 
+def _extent_case(bh, nk, lengths, g):
+    """Prefix masks of `lengths` (lo, hi) valid keys a slice (None: drawn
+    from 1 .. nk), slice 0 with no valid key, slice 1 full and slice 2
+    with a hole (valid keys before and after a masked stretch)."""
+    lo, hi = lengths or (1, nk)
+    valid = torch.randint(lo, hi + 1, (bh,), generator=g)
+    mask = torch.arange(nk)[None, :] < valid[:, None]
+    mask[0], mask[1] = False, True
+    if bh > 2:
+        mask[2] = False
+        mask[2, :3] = True
+        mask[2, nk // 2:nk // 2 + 5] = True
+    return mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bh,nq,nk,d,lengths", [
+    (64, 2240, 2240, 32, (280, 420)),   # the inference cell's coarse level
+    (16, 656, 656, 32, (656, 656)),     # ModelNet's, every key valid
+    (6, 300, 333, 16, None),            # a ragged key edge
+    (5, 130, 200, 64, None),
+    (3, 17, 9, 16, None),               # less than one tile
+])
+def test_key_extents_leave_the_kernel_bitwise_unchanged(cuda, bh, nq, nk,
+                                                        d, lengths, dtype):
+    """K1 with each slice's key extent gives the out and lse of K1 with a
+    null extent bit for bit, and so the same gradients; under a profiler
+    `key_tiles` counts the key tiles it ran and those of the padded grid."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from regtr_tpu_torch.ops import attention
+
+    g = torch.Generator().manual_seed(nq * nk + d)
+    tdt = getattr(torch, dtype)
+    q, k, v = (torch.randn(bh, n, d, generator=g).to(cuda, tdt)
+               for n in (nq, nk, nk))
+    mask = _extent_case(bh, nk, lengths, g)
+    bias = torch.where(mask, 0.0, NEG_BIAS).float().to(cuda)
+    ext = attention.key_extents(mask.to(cuda))
+    full = attention._fwd(q, k, v, bias, d ** -0.5, True)
+    attention.flash_masked_attention.key_tiles = None
+    with profile(activities=[ProfilerActivity.CPU]):
+        cut = attention._fwd(q, k, v, bias, d ** -0.5, True, ext)
+    run, grid = attention.flash_masked_attention.key_tiles.tolist()
+    attention.flash_masked_attention.key_tiles = None
+    assert torch.equal(cut[0], full[0]) and torch.equal(cut[1], full[1])
+    expect = attention.key_tile_counts(ext, bh, nq, nk)
+    assert (run, grid) == (int(expect[0]), expect[1])
+    print(f"{(bh, nq, nk, d)} {dtype}: key tiles {run} of {grid} "
+          f"({100 * run / grid:.1f} %)")
+    grads = []
+    for e in (None, ext):
+        qq, kk, vv = (x.clone().requires_grad_() for x in (q, k, v))
+        out = attention.flash_masked_attention(qq, kk, vv, bias, d ** -0.5,
+                                               kv_extent=e)
+        out.float().square().sum().backward()
+        grads.append((out, qq.grad, kk.grad, vv.grad))
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
 @pytest.mark.cuda
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     q = torch.zeros(2, 8, 24, device=cuda)           # head dim 24
@@ -89,6 +150,9 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):                   # non-contiguous k
         flash_masked_attention(q, q.transpose(1, 2).contiguous()
                                .transpose(1, 2), q, bias, 0.2)
+    with pytest.raises(ValueError):                   # int64 key extents
+        flash_masked_attention(q, q, q, bias, 0.2,
+                               kv_extent=torch.full((2,), 8, device=cuda))
 
 
 @pytest.mark.cuda

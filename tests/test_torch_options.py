@@ -251,9 +251,9 @@ def count_kernel_calls(monkeypatch):
     calls = []
     real = transformer.flash_masked_attention
 
-    def counted(*args):
+    def counted(*args, **kwargs):
         calls.append(1)
-        return real(*args)
+        return real(*args, **kwargs)
 
     monkeypatch.setattr(transformer, "flash_masked_attention", counted)
     return calls
