@@ -39,7 +39,7 @@ def program_answers(entry, cfg, pool, w, device, fault=None):
 
     program = cells.CELLS[entry](cfg, pool, w, device)
     if fault is not None:
-        program = faults.FAULTS[fault](program)
+        program = faults.plant(fault, program)
     program.warm()
     if entry == "train_step":
         window(program, len(pool), CALIBRATION_WINDOW_S,
@@ -60,7 +60,7 @@ def program_gaps(entry, cfg, pool, w, device, fault=None, detail=None):
     if detail is not None:
         detail["ref"] = ref
         detail["got"] = got
-    return check.gaps(entry, got, ref)
+    return check.gaps(cfg, entry, got, ref)
 
 
 def main(argv=None):
@@ -97,7 +97,7 @@ def main(argv=None):
         if opt.control:
             control = check.reference_answers(entry, cfg, pool, w, device,
                                               tf32=True, got=got)
-            line["control"] = check.gaps(entry, control, ref)
+            line["control"] = check.gaps(cfg, entry, control, ref)
             if entry == "train_step":
                 line["control_detail"] = check.train_detail(control, ref)
         for fault in filter(None, opt.faults.split(",")):

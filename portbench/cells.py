@@ -5,14 +5,17 @@ configuration's optimizer).  One client, a closed loop: a batch's clock
 runs from the host's numpy arrays, which are uploaded inside it, to its
 result on the host (the poses, or a step's end).
 
-These are the only places the benchmark calls the program; the program is
-imported here, inside the functions, and nowhere else.
+These and the model families' `parameter_shapes` (families/) are the only
+places the benchmark imports the program, inside the functions.
 """
 from __future__ import annotations
 
 import time
 
 import torch
+
+from . import manifest
+from .weights import Leaves
 
 
 def sync(device):
@@ -34,20 +37,17 @@ def build_model(cfg, n0, weights, device):
     return model
 
 
-def parameter_shapes(cfg, n0) -> dict:
-    """{name: shape} of the model's parameters, read on the meta device."""
-    from regtr_tpu_torch.models import get_model
-    from regtr_tpu_torch.ops.pyramid import make_pyramid_spec
-
-    with torch.device("meta"):
-        model = get_model(cfg.get("model", "regtr.RegTR"))(
-            cfg, make_pyramid_spec(cfg, n0))
-    return {n: tuple(t.shape) for n, t in model.state_dict().items()}
+def parameter_shapes(cfg, n0) -> Leaves:
+    """{name: shape} of the model's parameters, read on the meta device
+    by the configuration's model family, with its rule for drawing them."""
+    family = manifest.family(cfg)
+    return Leaves(family.parameter_shapes(cfg, n0), family.weight_rule)
 
 
 class ForwardCell:
-    """Inference: each batch's poses reach the host.  Keeps, per pool
-    batch, the outputs of its latest run in the window for the check."""
+    """Inference: each batch's result reaches the host (the model family's
+    `keep`: RegTR's poses).  Keeps, per pool batch, what `keep` keeps of
+    its latest run in the window for the check."""
 
     entry = "forward"
 
@@ -55,6 +55,7 @@ class ForwardCell:
         from regtr_tpu_torch.train.steps import make_forward
 
         self.cfg, self.pool, self.device = cfg, pool, device
+        self.family = manifest.family(cfg, (self.entry,))
         self.pairs_per_batch = pool[0]["pose"].shape[0]
         self.model = build_model(cfg, pool[0]["points"].shape[1], weights,
                                  device)
@@ -69,13 +70,10 @@ class ForwardCell:
     def one(self, i):
         """One batch through the entry; returns its pairs."""
         x = upload(self.pool[i], self.device, ("points", "mask"))
-        out = self.forward(x["points"], x["mask"])
-        pose = out["pose"][-1].cpu()
-        if not bool(torch.isfinite(pose).all()):
+        kept = self.family.keep(self.forward(x["points"], x["mask"]))
+        if self.family.failed(kept):
             self.failed += 1
-        self.kept[i] = {"pose": pose, "kp": out["kp"],
-                        "kp_mask": out["kp_mask"], "corr": out["corr"][-1],
-                        "overlap": out["overlap_logits"][-1]}
+        self.kept[i] = kept
         return self.pairs_per_batch
 
     def at_boundary(self) -> bool:
@@ -86,9 +84,9 @@ class ForwardCell:
 
     def stages(self, i):
         """One batch with the device synchronized after each stage of the
-        forward: {stage: ms}."""
+        forward, as the model family orders them: {stage: ms}."""
         x = upload(self.pool[i], self.device, ("points", "mask"))
-        model, times = self.model, {}
+        times = {}
 
         def timed(name, fn, *args):
             t = time.perf_counter()
@@ -98,13 +96,7 @@ class ForwardCell:
             return out
 
         with torch.inference_mode():
-            levels = timed("pyramid", model.preprocess, x["points"],
-                           x["mask"])
-            feats, pe = timed("backbone", model.encode, levels)
-            cond = timed("transformer", model.condition, feats, pe,
-                         levels[-1].mask)
-            timed("head_pose", model.head_and_pose, cond, levels[-1].points,
-                  levels[-1].mask, pe)
+            self.family.stages(self.model, x["points"], x["mask"], timed)
         return times
 
     def answers(self):
@@ -130,6 +122,7 @@ class TrainStepCell:
         from regtr_tpu_torch.train.steps import make_train_step
 
         self.cfg, self.pool, self.device = cfg, pool, device
+        self.family = manifest.family(cfg, (self.entry,))
         self.pairs_per_batch = pool[0]["pose"].shape[0]
         self.model = build_model(cfg, pool[0]["points"].shape[1], weights,
                                  device)

@@ -4,12 +4,9 @@ same points and weights, and each number below is compared with its
 limit (portbench/limits/<workload>.json).
 
 Inference, over every pool batch, against the outputs of that batch's
-latest run in the window (the forward is deterministic, so these are every
-distinct answer the window gave):
-  kp_gap       coarse keypoints, max |difference| (inf if a mask differs)
-  corr_gap     predicted correspondences (last layer), max |difference|
-  overlap_gap  overlap scores (sigmoid), max |difference|
-  pose_gap     the poses' 3x4 entries, max |difference|
+latest run in the window: the numbers of the configuration's model family
+(families/<family>.py `forward_gaps`; RegTR's: kp_gap, corr_gap,
+overlap_gap, pose_gap).
 Training, over the first three steps that set-up drove through the
 window's call (the reference runs them from the same weights and batches),
 and again, as window_loss_gap, window_grad_gap and window_update_gap, over
@@ -36,10 +33,6 @@ count, which the set-up's three check from their start):
 
 The control, which has to fail these limits, is the same reference in
 TF32 (`tf32=True`), the next precision below the configuration's float32.
-The neighbour search is the measured package's stated semantics (the
-selection on the bf16 rounding of the fp32 distance, the radius widened
-by 0.4 %; reference/pyramid.py), not an exact radius search: faults.py's
-neighbor_dropped shows the check sees a list one entry short.
 """
 from __future__ import annotations
 
@@ -47,9 +40,8 @@ import statistics
 
 import torch
 
+from . import manifest
 from .reference import optim as ref_optim
-from .reference import pyramid as ref_pyramid
-from .reference.model import RegTR as Reference
 
 SMALL_GRAD = 1e-3
 
@@ -60,56 +52,30 @@ def set_tf32(on: bool):
 
 
 def reference(cfg, n0, weights, device):
-    model = Reference(cfg, n0).to(device)
+    model = manifest.family(cfg).Reference(cfg, n0).to(device)
     model.load_state_dict(weights)
     return model
 
 
 def forward_answers(cfg, pool, weights, device, tf32=False):
-    """The reference's outputs for each pool batch, as the program's
-    ForwardCell keeps them."""
+    """The reference's outputs for each pool batch, in the form the
+    program's ForwardCell keeps them."""
+    family = manifest.family(cfg, ("forward",))
     set_tf32(tf32)
     try:
         model = reference(cfg, pool[0]["points"].shape[1], weights, device)
         out = {}
         with torch.no_grad():
             for i, batch in enumerate(pool):
-                r = model(torch.from_numpy(batch["points"]).to(device),
-                          torch.from_numpy(batch["mask"]).to(device))
-                out[i] = {"pose": r["pose"][-1].cpu(), "kp": r["kp"].cpu(),
-                          "kp_mask": r["kp_mask"].cpu(),
-                          "corr": r["corr"][-1].cpu(),
-                          "overlap": r["overlap_logits"][-1].cpu()}
+                out[i] = family.reference_forward(
+                    model, torch.from_numpy(batch["points"]).to(device),
+                    torch.from_numpy(batch["mask"]).to(device))
         return out
     finally:
         set_tf32(False)
 
 
-def forward_gaps(got: dict, ref: dict) -> dict:
-    gaps = {"kp_gap": 0.0, "corr_gap": 0.0, "overlap_gap": 0.0,
-            "pose_gap": 0.0}
-    for i, r in ref.items():
-        g = got.get(i)
-        if g is None or not torch.equal(g["kp_mask"], r["kp_mask"]):
-            return {k: float("inf") for k in gaps}
-        m = r["kp_mask"]
-
-        def gap(a, b):
-            d = (a.double() - b.double()).abs()
-            return float(d[m].max()) if bool(m.any()) else 0.0
-
-        upd = {"kp_gap": gap(g["kp"], r["kp"]),
-               "corr_gap": gap(g["corr"], r["corr"]),
-               "overlap_gap": gap(torch.sigmoid(g["overlap"].double()),
-                                  torch.sigmoid(r["overlap"].double())),
-               "pose_gap": float((g["pose"].double()
-                                  - r["pose"].double()).abs().max())}
-        for k, v in upd.items():
-            gaps[k] = max(gaps[k], v if v == v else float("inf"))
-    return gaps
-
-
-def _follow(model, opt, batches, device) -> dict:
+def _follow(family, model, opt, batches, device) -> dict:
     """The reference's steps on `batches` from its present state: each
     step's loss, the first step's gradient leaf norms as the optimizer
     holds them (after clipping: (mu1 - b1 mu) / (1 - b1)), their shares
@@ -120,8 +86,7 @@ def _follow(model, opt, batches, device) -> dict:
     record = {"losses": []}
     for s, batch in enumerate(batches):
         b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
-        levels = model.pyramid(b["points"], b["mask"])
-        losses, _ = model.losses(levels, b["pose"], b["overlap0"])
+        losses = family.reference_losses(model, b)
         grads = torch.autograd.grad(losses["total"], params,
                                     allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
@@ -138,7 +103,7 @@ def _follow(model, opt, batches, device) -> dict:
                 n: float((g.abs() < 10 * ref_optim.EPS).float().mean())
                 for n, g in zip(names, g1)}
             del mu, g1
-        del losses, grads, levels
+        del losses, grads
     record["change_norms"] = {n: float((p.detach() - q).double().norm())
                               for n, p, q in zip(names, params, start)}
     return record
@@ -151,10 +116,11 @@ def train_record(cfg, pool, weights, device, steps=3, tf32=False,
     last three steps) also those steps, from the state they started at."""
     set_tf32(tf32)
     try:
+        family = manifest.family(cfg, ("train_step",))
         n0 = pool[0]["points"].shape[1]
         model = reference(cfg, n0, weights, device)
         opt = ref_optim.AdamW([p for _, p in model.named_parameters()], cfg)
-        record = _follow(model, opt, pool[:steps], device)
+        record = _follow(family, model, opt, pool[:steps], device)
         if window is not None:
             del model, opt
             model = reference(cfg, n0, weights, device)
@@ -165,11 +131,12 @@ def train_record(cfg, pool, weights, device, steps=3, tf32=False,
                     p.copy_(start["params"][n])
             opt = ref_optim.AdamW([p for _, p in model.named_parameters()],
                                   cfg)
-            opt.mu = [start["mu"][n].to(device) for n in names]
-            opt.nu = [start["nu"][n].to(device) for n in names]
+            opt.mu = [start["mu"][n].to(device, copy=True) for n in names]
+            opt.nu = [start["nu"][n].to(device, copy=True) for n in names]
             opt.count = int(start["count"])
             record["window"] = _follow(
-                model, opt, [pool[i] for i in window["batches"]], device)
+                family, model, opt, [pool[i] for i in window["batches"]],
+                device)
         return record
     finally:
         set_tf32(False)
@@ -248,24 +215,7 @@ def reference_answers(entry, cfg, pool, weights, device, tf32=False,
                         window=(got or {}).get("window"))
 
 
-def gaps(entry, got, ref) -> dict:
-    return forward_gaps(got, ref) if entry == "forward" else train_gaps(
-        got, ref)
-
-
-def pool_counts(cfg, pool, device):
-    """The work of each pool batch (counts.batch_counts) on the
-    reference's pyramid of its points."""
-    from .counts import batch_counts
-
-    spec = ref_pyramid.make_spec(cfg, pool[0]["points"].shape[1])
-    out = []
-    with torch.no_grad():
-        for batch in pool:
-            levels = ref_pyramid.build(
-                torch.from_numpy(batch["points"]).to(device),
-                torch.from_numpy(batch["mask"]).to(device), spec)
-            out.append(batch_counts(cfg, levels, spec,
-                                    ref_pyramid.pairs_within))
-            del levels
-    return out
+def gaps(cfg, entry, got, ref) -> dict:
+    if entry == "forward":
+        return manifest.family(cfg, (entry,)).forward_gaps(got, ref)
+    return train_gaps(got, ref)

@@ -4,7 +4,7 @@ traced run.  `trace` holds:
     summary  trace.summarize of the profiled part: busy_s, window_s,
              device seconds by operation
     runs     the pool batch of each run in the profiled part
-    counts   counts.batch_counts of each pool batch
+    counts   the work of each pool batch (the family's pool_counts)
     peaks    counts.peaks of the configuration's dtype
 Each reader returns None where the run has nothing for it to read: the
 harness then leaves the metric out.

@@ -3,8 +3,9 @@
     python3 -m portbench.run --workload <cell> --seed <n> --seconds <s>
         --trace <0|1>
 
-A cell of BENCHMARK.json names a configuration (portbench/configs/), a
-traffic mix (portbench/traffic/mixes/) and its limits (portbench/limits/).
+A cell of BENCHMARK.json names a configuration (portbench/configs/), whose
+`model` names its model family (portbench/families/), a traffic mix
+(portbench/traffic/mixes/) and its limits (portbench/limits/).
 Set-up makes the pool of batches and the weights from --seed, builds the
 program's model, and warms every shape the pool uses (training: the first
 three steps, which the check compares); then the window runs the closed
@@ -221,7 +222,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
-    got = check.gaps(entry, answers, check.reference_answers(
+    got = check.gaps(cfg, entry, answers, check.reference_answers(
         entry, cfg, pool, w, device, got=answers))
     checks = {k: {"value": v, "limit": cell.limits[k]}
               for k, v in got.items()}
@@ -230,10 +231,11 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     result.update(correct=bool(correct), attempted=attempted, failed=failed)
 
     if trace:
-        from . import counts
+        from . import counts, manifest
 
         dtype = cfg.get("compute_dtype", "float32")
-        tfields["counts"] = check.pool_counts(cfg, pool, device)
+        tfields["counts"] = manifest.family(cfg).pool_counts(cfg, pool,
+                                                             device)
         tfields["peaks"] = counts.peaks(dtype, counts.max_sm_clock_hz()
                                         if device.type == "cuda" else 1.98e9)
         from . import trace as tr

@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from portbench import counts, readings, run, trace
+from portbench.families import regtr
 from portbench.reference import pyramid
 
 
@@ -92,7 +93,7 @@ def test_batch_counts_on_a_tiny_pyramid():
     mask[1, 200:] = False
     spec = pyramid.make_spec(cfg, 256)
     levels = pyramid.build(pts, mask, spec)
-    c = counts.batch_counts(cfg, levels, spec, pyramid.pairs_within)
+    c = regtr.batch_counts(cfg, levels, spec, pyramid.pairs_within)
     coarse = [int(x) for x in levels[-1].mask.sum(1)]
     d, layers = cfg["d_embed"], cfg["num_encoder_layers"]
     pairs = (sum(x * x for x in coarse) + 2 * coarse[0] * coarse[1])

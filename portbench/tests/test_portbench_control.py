@@ -39,7 +39,7 @@ def readings(name, faults=()):
     held = {}
     out = {"program": calibrate.program_gaps(entry, cfg, pool, weights,
                                              device, detail=held)}
-    out["control"] = check.gaps(entry, check.reference_answers(
+    out["control"] = check.gaps(cfg, entry, check.reference_answers(
         entry, cfg, pool, weights, device, tf32=True, got=held["got"]),
         held["ref"])
     for fault in faults:

@@ -8,6 +8,7 @@ from pathlib import Path
 import pytest
 
 from portbench import manifest
+from portbench.traffic.generator import load_mix
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -128,6 +129,31 @@ def test_every_config_file_is_complete():
                 "config"} <= set(doc)
         assert doc["config"]["compute_dtype"] == doc["dtype"]
         assert (ROOT / "portbench/limits").exists()
+
+
+@pytest.mark.parametrize("path", sorted(
+    (ROOT / "portbench/configs").glob("*.json")), ids=lambda p: p.stem)
+def test_every_config_has_its_family(path):
+    """portbench/families/<family>.py, named by the module part of the
+    configuration's model, exists and provides the hooks of every family
+    and of the entries of the cells that run the configuration."""
+    cfg = json.loads(path.read_text())["config"]
+    name = cfg["model"].rsplit(".", 1)[0]
+    assert (ROOT / "portbench/families" / f"{name}.py").is_file()
+    configs = {c["name"] for c in BENCH["configs"]
+               if c["file"] == str(path.relative_to(ROOT))}
+    entries = sorted({load_mix(w["traffic"])["entry"]
+                      for w in BENCH["workloads"] if w["config"] in configs})
+    family = manifest.family(cfg, entries)
+    assert family.__name__ == f"portbench.families.{name}"
+
+
+@pytest.mark.parametrize("path", sorted(
+    (ROOT / "portbench/traffic/mixes").glob("*.json")), ids=lambda p: p.stem)
+def test_every_mix_has_its_source(path):
+    mix = json.loads(path.read_text())
+    assert (ROOT / "portbench/traffic" / f"{mix['source']}.py").is_file()
+    assert callable(manifest.traffic_source(mix["source"]).pairs)
 
 
 @pytest.mark.parametrize("name,loader", [("regtr-3dmatch",

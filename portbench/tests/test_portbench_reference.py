@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from portbench import cells, check, weights
+from portbench.families import regtr
 from portbench.reference.model import RegTR as Reference
 from portbench.tests.tiny import tiny_config
 from portbench.traffic import generator
@@ -41,7 +42,7 @@ def test_forward_bitwise_the_plain_route(setup):
     program.warm()
     got = program.answers()
     ref = check.forward_answers(cfg, pool, w, cpu)
-    gaps = check.forward_gaps(got, ref)
+    gaps = regtr.forward_gaps(got, ref)
     assert gaps == {"kp_gap": 0.0, "corr_gap": 0.0, "overlap_gap": 0.0,
                     "pose_gap": 0.0}
 
@@ -75,3 +76,22 @@ def test_the_losses_of_one_batch_are_the_programs(setup):
     assert set(got) == set(want)
     for k in want:
         assert float(got[k]) == float(want[k]), k
+
+
+def test_the_window_reference_leaves_the_programs_state_as_it_was(setup):
+    """The reference follows the window's stretch from copies of the state
+    the program recorded: its optimizer moves moments of its own, not the
+    record's (on the host, `.to(device)` alone hands over the record's own
+    tensors), so a second reference, such as the control, starts where the
+    first did."""
+    cfg, pool, w = setup
+    start = {"count": 3, "params": {n: t.clone() for n, t in w.items()},
+             "mu": {n: torch.full_like(t, 1e-3) for n, t in w.items()},
+             "nu": {n: torch.full_like(t, 1e-6) for n, t in w.items()}}
+    before = {k: {n: t.clone() for n, t in start[k].items()}
+              for k in ("params", "mu", "nu")}
+    check.train_record(cfg, pool, w, torch.device("cpu"), steps=1,
+                       window={"start": start, "batches": [1]})
+    for key, tensors in before.items():
+        for n, t in tensors.items():
+            assert torch.equal(start[key][n], t), (key, n)

@@ -4,6 +4,7 @@ correct, no JAX module is loaded, and the command refuses to run without
 a card."""
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -48,7 +49,7 @@ FAULTS = [("3dmatch-infer", "answer_altered"),
 @pytest.mark.parametrize("name,fault", FAULTS)
 def test_a_fault_underneath_is_not_correct(name, fault):
     r = run.run_cell(cell(name), 2 ** 31 + 23, 0.2, False, CPU, BENCH,
-                     wrap=faults.FAULTS[fault])
+                     wrap=functools.partial(faults.plant, fault))
     assert not r["correct"], r["checks"]
 
 

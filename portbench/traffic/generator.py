@@ -4,12 +4,12 @@ configuration and a seed, into the pool of batches a run cycles through.
 
 A mix holds:
     entry            "forward" (the inference entry) or "train_step"
-    source           "rooms" (rooms.py)
+    source           the module portbench/traffic/<source>.py, whose
+                     pairs(mix, seed) makes the pool's pairs from the
+                     mix's own keys (e.g. "rooms": rooms.py)
     pairs_per_batch  pairs in one batch
     pool_pairs       distinct pairs made in set-up, cycled in the window
     seed_offset      added to --seed before any draw
-    rooms:  points_per_scan; labels_radius (ground-truth overlap labels
-            at this radius, or null for none)
 Each batch is padded to the bucket that the configuration's `buckets` pick
 for its largest cloud (the smallest bucket that holds it), pairs
 interleaved (slot 2i the source of pair i, 2i + 1 its target).
@@ -20,7 +20,6 @@ import json
 from pathlib import Path
 
 import numpy as np
-from scipy.spatial import cKDTree
 
 MIXES = Path(__file__).resolve().parent / "mixes"
 
@@ -35,33 +34,6 @@ def pick_bucket(n: int, buckets) -> int:
         if n <= b:
             return int(b)
     return int(max(buckets))
-
-
-def overlap_labels(src, tgt, radius):
-    """Whether each point has a point of the other cloud within the
-    radius (both in the target's frame)."""
-    d_s, _ = cKDTree(tgt).query(src, k=1, distance_upper_bound=radius)
-    d_t, _ = cKDTree(src).query(tgt, k=1, distance_upper_bound=radius)
-    return np.isfinite(d_s), np.isfinite(d_t)
-
-
-def room_pairs(mix, seed):
-    from .rooms import scans
-
-    clouds = scans(mix["pool_pairs"], mix["points_per_scan"],
-                   (seed + mix["seed_offset"]) % 2 ** 32)
-    pairs = []
-    for (src, rs, ts), (tgt, rt, tt) in zip(clouds[0::2], clouds[1::2]):
-        rot = rt @ rs.T                       # src -> tgt
-        pose = np.concatenate([rot, (tt - rot @ ts)[:, None]], 1)
-        pair = {"src_xyz": src, "tgt_xyz": tgt,
-                "pose": pose.astype(np.float32)}
-        if mix.get("labels_radius"):
-            warped = (src @ rot.T + pose[:, 3]).astype(np.float32)
-            pair["src_overlap"], pair["tgt_overlap"] = overlap_labels(
-                warped, tgt, mix["labels_radius"])
-        pairs.append(pair)
-    return pairs
 
 
 def collate(pairs, buckets) -> dict:
@@ -86,8 +58,9 @@ def collate(pairs, buckets) -> dict:
 
 def make_pool(mix: dict, cfg: dict, seed: int) -> list:
     """The run's batches, in the order the window cycles them."""
-    make = {"rooms": room_pairs}[mix["source"]]
-    pairs = make(mix, seed)
+    from ..manifest import traffic_source
+
+    pairs = traffic_source(mix["source"]).pairs(mix, seed)
     per = mix["pairs_per_batch"]
     if len(pairs) % per:
         raise ValueError(f"a pool of {len(pairs)} pairs in batches of {per}")

@@ -6,10 +6,14 @@ bit), so that later changes there cannot move the benchmark's traffic.
 A room is a floor, four walls and 4-8 boxes of furniture at meter scale;
 a scan is the n_points points of the room, voxel-downsampled once to
 2.5 cm, nearest to its center, moved by its own rigid transform.
+
+As a traffic source (generator.py), `pairs` makes a mix's pairs of scans
+with their poses and overlap labels.
 """
 from __future__ import annotations
 
 import numpy as np
+from scipy.spatial import cKDTree
 
 VOXEL = 0.025     # the scans' grid (conf/3dmatch.yaml first_subsampling_dl)
 
@@ -108,4 +112,33 @@ def scans(n_pairs, n_points, seed):
             trans = rng.randn(3) * 0.3
             out.append(((room[keep] @ rot.T + trans).astype(np.float32),
                           rot, trans))
+    return out
+
+
+def overlap_labels(src, tgt, radius):
+    """Whether each point has a point of the other cloud within the
+    radius (both in the target's frame)."""
+    d_s, _ = cKDTree(tgt).query(src, k=1, distance_upper_bound=radius)
+    d_t, _ = cKDTree(src).query(tgt, k=1, distance_upper_bound=radius)
+    return np.isfinite(d_s), np.isfinite(d_t)
+
+
+def pairs(mix, seed):
+    """The mix's pool of pairs: {src_xyz, tgt_xyz, pose (3, 4), and with
+    labels_radius the ground-truth overlap labels src_overlap,
+    tgt_overlap}.  Keys of the mix: points_per_scan; labels_radius (the
+    labels' radius, or null for none)."""
+    clouds = scans(mix["pool_pairs"], mix["points_per_scan"],
+                   (seed + mix["seed_offset"]) % 2 ** 32)
+    out = []
+    for (src, rs, ts), (tgt, rt, tt) in zip(clouds[0::2], clouds[1::2]):
+        rot = rt @ rs.T                       # src -> tgt
+        pose = np.concatenate([rot, (tt - rot @ ts)[:, None]], 1)
+        pair = {"src_xyz": src, "tgt_xyz": tgt,
+                "pose": pose.astype(np.float32)}
+        if mix.get("labels_radius"):
+            warped = (src @ rot.T + pose[:, 3]).astype(np.float32)
+            pair["src_overlap"], pair["tgt_overlap"] = overlap_labels(
+                warped, tgt, mix["labels_radius"])
+        out.append(pair)
     return out

@@ -1,11 +1,14 @@
 """The weights a run hands to the program and to the reference alike, drawn
 from --seed on the run's device in two large calls (a normal and a uniform
-draw over every leaf), then cut and scaled leaf by leaf by the rule its
-name and shape give:
-  * a 2-D weight (out, in): normal with stddev 1 / sqrt(in) (lecun);
-  * a KPConv weight (P, Cin, Cout): uniform in +-1 / sqrt(P Cin);
-  * InfoNCE's W: normal with stddev 0.1;
-  * a LayerNorm's scale: one; every bias: zero.
+draw over every leaf that takes one), then made leaf by leaf by the rule
+of the configuration's model family (families/<family>.py `weight_rule`),
+which cells.parameter_shapes hands over with the shapes.
+
+A rule, weight_rule(name, shape) -> (stream, finish), names the leaf's
+stream, "normal", "uniform" or None, and `finish` makes the leaf from its
+slice of that stream in the leaf's shape (of None: from zeros).  The
+streams are cut in the order of the leaves, so a rule that takes no stream
+leaves every other leaf's draw as it was.
 """
 from __future__ import annotations
 
@@ -13,47 +16,37 @@ import math
 
 import torch
 
-
-def _kind(name: str, shape) -> str:
-    if name.endswith(".W"):
-        return "infonce"
-    if len(shape) == 3:
-        return "kpconv"
-    if len(shape) == 2:
-        return "linear"
-    if name.endswith(".bias"):
-        return "zero"
-    if len(shape) == 1 and "norm" in name.rsplit(".", 2)[-2]:
-        return "one"
-    raise ValueError(f"no weight rule for {name} {tuple(shape)}")
+STREAMS = ("normal", "uniform")
 
 
-def draw(shapes: dict, seed: int, device) -> dict:
+class Leaves(dict):
+    """{name: shape} of a model's leaves (cells.parameter_shapes), with
+    `rule`, its family's weight_rule."""
+
+    def __init__(self, shapes: dict, rule):
+        super().__init__(shapes)
+        self.rule = rule
+
+
+def draw(shapes: Leaves, seed: int, device) -> dict:
     """{name: shape} -> {name: fp32 tensor on device}."""
-    kinds = {n: _kind(n, s) for n, s in shapes.items()}
-    gen = torch.Generator(device=device).manual_seed(seed)
+    rules = {n: shapes.rule(n, s) for n, s in shapes.items()}
     numel = {n: math.prod(s) for n, s in shapes.items()}
-    n_normal = sum(numel[n] for n, k in kinds.items()
-                   if k in ("linear", "infonce"))
-    n_uniform = sum(numel[n] for n, k in kinds.items() if k == "kpconv")
-    normal = torch.randn(n_normal, generator=gen, device=device)
-    uniform = torch.rand(n_uniform, generator=gen, device=device)
-    out, at_n, at_u = {}, 0, 0
+    gen = torch.Generator(device=device).manual_seed(seed)
+    size = {s: sum(numel[n] for n, (t, _) in rules.items() if t == s)
+            for s in STREAMS}
+    drawn = {"normal": torch.randn(size["normal"], generator=gen,
+                                   device=device),
+             "uniform": torch.rand(size["uniform"], generator=gen,
+                                   device=device)}
+    at = dict.fromkeys(STREAMS, 0)
+    out = {}
     for name, shape in shapes.items():
-        k, size = kinds[name], numel[name]
-        if k == "linear":
-            out[name] = normal[at_n:at_n + size].view(shape) / math.sqrt(
-                shape[1])
-            at_n += size
-        elif k == "infonce":
-            out[name] = normal[at_n:at_n + size].view(shape) * 0.1
-            at_n += size
-        elif k == "kpconv":
-            bound = 1.0 / math.sqrt(shape[0] * shape[1])
-            out[name] = (uniform[at_u:at_u + size].view(shape) * 2.0
-                         - 1.0) * bound
-            at_u += size
-        else:
-            out[name] = torch.full(shape, 1.0 if k == "one" else 0.0,
-                                   device=device)
+        stream, finish = rules[name]
+        if stream is None:
+            out[name] = finish(torch.zeros(shape, device=device))
+            continue
+        a = at[stream]
+        out[name] = finish(drawn[stream][a:a + numel[name]].view(shape))
+        at[stream] = a + numel[name]
     return out
