@@ -63,6 +63,18 @@ non-zero without one, and without the checkout beside it).  Phases:
    forward with K5 against the forward with index_select (bitwise);
 5b. `python -m regtr_tpu_torch.bench` at its defaults, once: its JSON
    line beside phase 5's pairs/s;
+5c. GeoTransformer (portbench/configs/geotr-3dmatch.json, fp32, its
+   program's seeded init) on 4 pairs of those scans at bucket 24576: K1
+   at the cross-attention's shape (16, 512, 512, 64) with key extents
+   (352 / 377 and 300 valid keys) against its plain version, and bitwise
+   the launch without extents, timed; a forward with the launch counts
+   set to 0 just before it, the counts against
+   `geotr_launches_per_forward` (ten searches, two K1 launches a cross
+   block, the backbone's, the decoder's and the four patch gathers, no
+   other kernel), every K6, K1 and K5a launch of it held to its plain
+   version as it happens, finite poses; K5a at the patch gathers' own
+   tables and ids (level-1 features, 256 wide, and points, 3 wide)
+   bitwise index_select, timed;
 6. training path: the shipped 3DMatch config (fp32) on 2 pairs of those
    scans with GT poses and overlap labels, collated at the bucket the
    config picks (24576): the gather transpose on the step's level-0 table
@@ -1154,6 +1166,155 @@ def phase_bench(pairs_per_s):
     log(f"bench: {record['value']} pairs/s ({took:.1f} s with the process's "
         f"start) beside phase 5's {pairs_per_s:.3f} pairs/s")
     return record
+
+
+GEOTR_CONFIG = ROOT / "portbench" / "configs" / "geotr-3dmatch.json"
+GEOTR_N0 = 24576      # the bucket 19 000-point scans take (geotr-3dmatch)
+
+
+def geotr_launches_per_forward(model):
+    """Kernel launches of one forward of `model`, a
+    models/geotransformer.GeoTransformer: K6, the pyramid's searches; K1,
+    two a cross block (the target's update, then the source's); K5a, the
+    backbone's gathers as RegTR's (the first block at each (conv or pool,
+    level) table gathers its features and its neighbors' coordinates,
+    later blocks the features), the decoder's two nearest upsamplings
+    and the four patch gathers (level-1 features and points of both
+    sides of the chosen node pairs); no other kernel."""
+    seen, rows = set(), 0
+    for block in model.backbone.children():
+        if hasattr(block, "KPConv"):
+            key = ("pool" if block.strided else "conv", block.layer_ind)
+            rows += 1 if key in seen else 2
+            seen.add(key)
+    counts = dict.fromkeys(_counted(), 0)
+    counts.update(neighbor_search=3 * model.spec.num_levels - 2,
+                  flash_attn_fwd=2 * model.transformer.blocks.count("cross"),
+                  row_gather=rows + 2 + 4)
+    return counts
+
+
+def geotr_cross_attention():
+    """K1 at GeoTransformer's cross-attention, fp32 (16, 512, 512, 64):
+    4 pairs x 4 heads, queries and keys at the model's extent of
+    superpoints, with key extents (alternate slices of 352 and 377 valid
+    keys, and 300 in every slice): out and lse within TOL and TOL_LSE of
+    the plain version and bitwise the launch without extents; CUDA-event
+    times of the kernel (single and back to back), of the launch without
+    extents and of the plain version, beside the bound over the valid
+    work."""
+    import torch
+
+    from regtr_tpu_torch.ops import attention
+
+    bh, n, d = 16, 512, 64
+    shape = (bh, n, n, d)
+    scale = d ** -0.5
+    found = []
+    for lengths in ((352, 377), (300, 300)):
+        g = torch.Generator().manual_seed(sum(lengths))
+        q, k, v = (torch.randn(bh, n, d, generator=g).to(DEVICE)
+                   for _ in range(3))
+        valid = torch.tensor([lengths[i % 2] for i in range(bh)])
+        mask = torch.arange(n)[None, :] < valid[:, None]
+        bias = torch.where(mask, 0.0, attention.NEG_BIAS).float().to(DEVICE)
+        ext = attention.key_extents(mask.to(DEVICE))
+        out, lse = attention._fwd(q, k, v, bias, scale, True, ext)
+        full = attention._fwd(q, k, v, bias, scale, True)
+        ref, ref_lse = attention.flash_masked_attention_reference(
+            q, k, v, bias, scale, return_lse=True)
+        err = float((out - ref).abs().max())
+        lse_err = float(((lse - ref_lse).abs() - 1e-6 * ref_lse.abs()).max())
+        what = f"K1 fp32 {shape}, valid keys {lengths[0]} / {lengths[1]}"
+        check(_excess(out, ref, TOL["float32"]) <= TOL["float32"]
+              and lse_err <= TOL_LSE, f"{what}: within TOL of the plain "
+              f"version (max |diff| {err:.2e}), lse within TOL_LSE")
+        check(torch.equal(out, full[0]) and torch.equal(lse, full[1]),
+              f"{what}: out and lse bitwise the launch without extents")
+        times = {name: (cuda_ms(fn), cuda_ms(fn, reps=10)) for name, fn in (
+            ("kernel", lambda: attention._fwd(q, k, v, bias, scale, False,
+                                              ext)),
+            ("null", lambda: attention._fwd(q, k, v, bias, scale, False)),
+            ("plain", lambda: attention.flash_masked_attention_reference(
+                q, k, v, bias, scale)))}
+        b = attention_fwd_bounds(shape, "float32", valid.tolist())
+        log(f"  {what}: kernel {times['kernel'][0]:.4f} ms, b2b "
+            f"{times['kernel'][1]:.4f}; without extents "
+            f"{times['null'][0]:.4f}, b2b {times['null'][1]:.4f}; plain "
+            f"{times['plain'][0]:.4f}, b2b {times['plain'][1]:.4f}; bound "
+            f"over the valid work {b['bound_ms']:.4f} ({b['bound_by']}; "
+            f"{b['bound_ms'] / times['kernel'][1] * 100:.1f} % of it b2b)")
+        found.append(dict(
+            what="geotransformer cross-attention", shape=list(shape),
+            dtype="float32", valid_keys=list(lengths), max_abs_err=err,
+            ms=times["kernel"][0], back_to_back_ms=times["kernel"][1],
+            null_extent_ms=times["null"][0],
+            null_extent_back_to_back_ms=times["null"][1],
+            plain_ms=times["plain"][0],
+            plain_back_to_back_ms=times["plain"][1],
+            valid_bound_ms=b["bound_ms"], valid_bound_by=b["bound_by"]))
+    return found
+
+
+def phase_geotransformer():
+    """Phase 5c (the module's docstring) -> {'k1': [...], 'launches':
+    {kernel: launches of one forward}, 'gathers': [...]}."""
+    import torch
+
+    from regtr_tpu_torch.data.rooms import padded_pairs
+    from regtr_tpu_torch.models import create_model
+    from regtr_tpu_torch.models import geotransformer as program
+    from regtr_tpu_torch.ops.gather import row_gather_reference
+    from regtr_tpu_torch.train.steps import make_forward
+
+    log("== phase 5c: GeoTransformer")
+    torch.cuda.empty_cache()
+    k1 = geotr_cross_attention()
+    cfg = json.loads(GEOTR_CONFIG.read_text())["config"]
+    model = create_model(cfg, GEOTR_N0, DEVICE, seed=0)
+    forward = make_forward(model)
+    points, mask = (torch.from_numpy(x).to(DEVICE) for x in padded_pairs(
+        N_PAIRS, N_POINTS, 3, GEOTR_N0))
+    forward(points, mask)
+    torch.cuda.synchronize()
+
+    # the patch gathers call the kernel from the model's module: held
+    # there, and their tables and ids kept by width for the timing
+    real, patch = program.row_gather, {}
+
+    def patch_rows(table, idx):
+        out = real(table, idx)
+        same = torch.equal(out, row_gather_reference(table, idx))
+        patch.setdefault(table.shape[1], []).append((table, idx, same))
+        return out
+
+    found = {}
+    _zero_launch_counts()
+    program.row_gather = patch_rows
+    try:
+        with held_to_plain(found):
+            out = forward(points, mask)
+            torch.cuda.synchronize()
+    finally:
+        program.row_gather = real
+    launches = _launch_counts()
+    want = geotr_launches_per_forward(model)
+    log(f"  launches of one forward: {launches}")
+    check(launches == want, f"launches of one forward {want}")
+    for (name, shape, dtype), (calls, worst, ok) in sorted(found.items()):
+        check(ok, f"{name} {shape} {dtype}: {calls} launches held to the "
+              f"plain version (largest |difference| {worst:.2e})")
+    held = sum(calls for (name, *_), (calls, _, _) in found.items()
+               if name == "row_gather") + sum(len(v) for v in patch.values())
+    check(held == launches["row_gather"] and sorted(patch) == [3, 256]
+          and all(same for v in patch.values() for *_, same in v),
+          f"every row gather held: the backbone's and the patch gathers' "
+          f"({sum(len(v) for v in patch.values())}, bitwise index_select)")
+    check(bool(torch.isfinite(out["pose"]).all()), "finite poses")
+    gathers = [_time_row_gather(table, idx, f"GeoTransformer patch rows, "
+                                f"{width} wide")
+               for width, ((table, idx, _), *_) in sorted(patch.items())]
+    return {"k1": k1, "launches": launches, "gathers": gathers}
 
 
 def phase_small_input():
@@ -4896,6 +5057,7 @@ def main():
     timed("4", phase_small_input)
     infer_launches, forwards, pairs_per_s = timed("5", phase_main_path)
     bench = timed("5b", phase_bench, pairs_per_s)
+    geotr = timed("5c", phase_geotransformer)
     train_launches, segsum = timed("6", phase_training)
     protocol = timed("7", phase_protocol)
     trained = timed("8", phase_trainer, trainer_shape)
@@ -4992,8 +5154,10 @@ def main():
                  bm: r["launches"]["flash_attn_fwd"]
                  for bm, r in protocol.items()},
              shape=[64, 1872, 1872, 32], dtype="bfloat16",
-             other_shapes=k1_other + trainer_shape_entry("fwd"),
-             key_extents=k1_extents, **k1["fwd"]),
+             other_shapes=k1_other + trainer_shape_entry("fwd")
+             + geotr["k1"], key_extents=k1_extents,
+             geotr_launches_per_forward=geotr["launches"]["flash_attn_fwd"],
+             **k1["fwd"]),
         dict(name="flash_attn_bwd_dkv", row="K2", route="cuda",
              **trainer_launches("flash_attn_bwd_dkv"),
              source=src + "flash_attn_bwd.cu",
@@ -5039,7 +5203,8 @@ def main():
              launches=infer_launches["row_gather"], forwards=forwards,
              train_launches=train_launches["row_gather"],
              steps=TRAIN_STEPS, protocol_launches=protocol_launches,
-             other_shapes=gather_rows[1:], **row),
+             geotr_launches_per_forward=geotr["launches"]["row_gather"],
+             other_shapes=gather_rows[1:] + geotr["gathers"], **row),
         dict(name="element_gather", row="K5b", route="cuda",
              **trainer_launches("element_gather"),
              source=src + "gather.cu",
@@ -5068,6 +5233,8 @@ def main():
              steps=TRAIN_STEPS, protocol_launches={
                  bm: r["launches"]["neighbor_search"]
                  for bm, r in protocol.items()},
+             geotr_launches_per_forward=geotr["launches"][
+                 "neighbor_search"],
              what="the ten searches of one phase-5 forward's pyramid "
                   "(4 pairs, bucket 20480), summed",
              max_abs_err=max(e["max_abs_err"] for e in searches["main"]),

@@ -67,19 +67,26 @@ def se3_compare(a: torch.Tensor, b: torch.Tensor) -> dict:
 
 
 def compute_rigid_transform(a: torch.Tensor, b: torch.Tensor,
-                            weights: torch.Tensor | None = None
-                            ) -> torch.Tensor:
+                            weights: torch.Tensor | None = None,
+                            add_eps: float | None = None) -> torch.Tensor:
     """Weighted Kabsch: find T = (R|t) with T*a ~= b.
 
     a, b: (*, N, 3); weights: (*, N) non-negative (zero for padded rows).
     The weight sum is clamped at 1e-6 and a reflection is fixed by flipping
     the sign of V's last column, chosen by det(V U^T).  Only the rotation is
     defined: LAPACK and cuSOLVER pick different signs for U and V.
+
+    With `add_eps` (GeoTransformer's weighted Procrustes), negative weights
+    count as 0 and the weights are divided by their sum plus add_eps.
     """
     if weights is None:
         weights = torch.ones(a.shape[:-1], dtype=a.dtype, device=a.device)
     w = weights[..., None]
-    w_norm = w / w.sum(dim=-2, keepdim=True).clamp_min(_EPS)
+    if add_eps is None:
+        w_norm = w / w.sum(dim=-2, keepdim=True).clamp_min(_EPS)
+    else:
+        w = torch.where(w > 0, w, 0.0)
+        w_norm = w / (w.sum(dim=-2, keepdim=True) + add_eps)
     centroid_a = (a * w_norm).sum(dim=-2, keepdim=True)
     centroid_b = (b * w_norm).sum(dim=-2, keepdim=True)
     cov = (a - centroid_a).transpose(-2, -1) @ ((b - centroid_b) * w_norm)

@@ -16,10 +16,14 @@ import torch.nn as nn
 
 from ..losses.feature import InfoNCELoss
 from ..nn.blocks import KPConvLayer, NormBlock
+from ..nn.geotransformer import PairGroupNorm
+from ..nn.matching import LogOptimalTransport
 from ..ops.pyramid import make_pyramid_spec
+from .geotransformer import GeoTransformer
 from .regtr import RegTR
 
-_MODELS = {"regtr.RegTR": RegTR, "RegTR": RegTR}
+_MODELS = {"regtr.RegTR": RegTR, "RegTR": RegTR,
+           "geotransformer.GeoTransformer": GeoTransformer}
 
 
 def register_model(name: str, cls):
@@ -39,8 +43,10 @@ def init_parameters(model: nn.Module, generator: torch.Generator):
     """Seeded init with flax's defaults: Dense kernels lecun-normal
     (truncated at 2 std), biases zero, LayerNorm scale one, KPConv weights
     and deformable offset weights U(+-1/sqrt(P*Cin)), offset biases zero,
-    the InfoNCE W normal with stddev 0.1.  Modules are
-    visited in registration order."""
+    the InfoNCE W normal with stddev 0.1; GroupNorm's scale one and bias
+    zero, the optimal transport's 0-D `alpha` one (torch's and upstream's
+    initial values; neither draws).  Modules are visited in registration
+    order."""
     def fill(param, draw):
         with torch.no_grad():
             param.copy_(draw(torch.empty(param.shape, dtype=param.dtype)))
@@ -70,11 +76,18 @@ def init_parameters(model: nn.Module, generator: torch.Generator):
         elif isinstance(m, InfoNCELoss):
             fill(m.W, lambda t: nn.init.normal_(t, 0.0, 0.1,
                                                 generator=generator))
+        elif isinstance(m, PairGroupNorm):
+            fill(m.weight, torch.ones_like)
+            fill(m.bias, torch.zeros_like)
+        elif isinstance(m, LogOptimalTransport):
+            fill(m.alpha, torch.ones_like)
 
 
-def create_model(cfg, n0_capacity: int, device, seed: int = 0) -> RegTR:
-    """Build the model named by cfg['model'] for `n0_capacity` input points
-    per cloud, on `device`, with parameters drawn from `seed`."""
+def create_model(cfg, n0_capacity: int, device, seed: int = 0) -> nn.Module:
+    """Build the model registered under cfg['model'] (default RegTR:
+    `regtr.RegTR`; also `geotransformer.GeoTransformer`) for `n0_capacity`
+    input points per cloud, on `device`, with parameters drawn from
+    `seed`."""
     cls = get_model(cfg.get("model", "regtr.RegTR"))
     spec = make_pyramid_spec(cfg, n0_capacity)
     # TF32 off, process-wide, for every route through the model: the

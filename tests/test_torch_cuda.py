@@ -705,3 +705,109 @@ def test_brute_neighbor_kernel_refuses_what_it_does_not_take(cuda):
                  (q, m, q, m, 0.1, neighbors.MAX_K + 1)):
         with pytest.raises(ValueError):
             neighbors.brute_radius_neighbors(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lengths", [(352, 377), (300, 300)])
+def test_k1_fp32_d64_at_geotransformers_cross_attention(cuda, lengths):
+    """K1 at GeoTransformer's cross-attention: 4 pairs x 4 heads, d_head 64,
+    fp32, queries and keys at the model's extent of superpoints (512 at
+    ~360 valid a cloud), with key extents: the plain version's result,
+    bitwise that without extents; its time by CUDA events beside the
+    plain one."""
+    from regtr_tpu_torch.ops import attention
+
+    bh, n, d = 16, 512, 64
+    g = torch.Generator().manual_seed(sum(lengths))
+    q, k, v = (torch.randn(bh, n, d, generator=g).to(cuda)
+               for _ in range(3))
+    mask = torch.zeros(bh, n, dtype=torch.bool)
+    for i in range(bh):
+        mask[i, :lengths[i % 2]] = True
+    bias = torch.where(mask, 0.0, NEG_BIAS).float().to(cuda)
+    ext = attention.key_extents(mask.to(cuda))
+    out = attention.flash_masked_attention(q, k, v, bias, d ** -0.5,
+                                           kv_extent=ext)
+    full = attention.flash_masked_attention(q, k, v, bias, d ** -0.5)
+    ref = flash_masked_attention_reference(q, k, v, bias, d ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(out, full)
+    torch.testing.assert_close(out, ref, atol=TOL["float32"],
+                               rtol=TOL["float32"])
+    times = {}
+    for name, fn in (("kernel", lambda: attention.flash_masked_attention(
+            q, k, v, bias, d ** -0.5, kv_extent=ext)),
+            ("plain", lambda: flash_masked_attention_reference(
+                q, k, v, bias, d ** -0.5))):
+        fn()
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        for _ in range(30):
+            fn()
+        end.record()
+        end.synchronize()
+        times[name] = start.elapsed_time(end) / 30
+    print(f"K1 fp32 {(bh, n, n, d)} valid {lengths}: kernel "
+          f"{times['kernel']:.4f} ms, plain {times['plain']:.4f} ms a call "
+          f"(30 back to back)")
+
+
+def _geotr_cell(cuda, seed):
+    from portbench import cells, manifest
+    from portbench import weights as weights_mod
+    from portbench.traffic.generator import load_mix, make_pool
+
+    cfg = manifest.load_config("geotr-3dmatch")["config"]
+    pool = make_pool(load_mix("rooms-4pairs"), cfg, seed)
+    w = weights_mod.draw(cells.parameter_shapes(
+        cfg, pool[0]["points"].shape[1]), seed, cuda)
+    return cfg, pool, w
+
+
+@pytest.mark.cuda
+def test_geotransformer_full_width_forward_within_the_cells_limits(cuda):
+    """The cell's configuration at its published widths on the card: the
+    forward of both pool batches through the inference entry, against the
+    plain reference, under the cell's limits."""
+    from portbench import calibrate, manifest
+
+    cfg, pool, w = _geotr_cell(cuda, 3300000001)
+    gaps = calibrate.program_gaps("forward", cfg, pool, w, cuda)
+    limits = manifest.load_limits("geotr-3dmatch-infer")
+    print(gaps)
+    assert all(gaps[k] <= limits[k] for k in limits), gaps
+
+
+@pytest.mark.cuda
+def test_geotransformer_counters_on_the_card(cuda):
+    """The model's counters under a profiler with the card traced: pairs
+    embedded (valid and of the grid at the model's extent, far below the
+    coarse level's capacity), correspondences and hypotheses."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from portbench import cells
+    from regtr_tpu_torch.models import geotransformer as program
+    from regtr_tpu_torch.train.steps import make_forward
+
+    cfg, pool, w = _geotr_cell(cuda, 3300000002)
+    model = cells.build_model(cfg, pool[0]["points"].shape[1], w, cuda)
+    x = cells.upload(pool[0], cuda, ("points", "mask"))
+    for key in program.COUNTERS:
+        program.COUNTERS[key] = None
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        out = make_forward(model)(x["points"], x["mask"])
+        torch.cuda.synchronize()
+    counts = out["levels"][-1].mask.sum(1)
+    cap = out["levels"][-1].mask.shape[1]
+    m = out["feats_c"].shape[1]
+    pairs = program.COUNTERS["geotr.embedding_pairs"].tolist()
+    assert pairs == [int((counts ** 2).sum()), 8 * m * m]
+    assert pairs[1] < 8 * cap * cap / 10
+    assert program.COUNTERS["geotr.fine_correspondences"].tolist() == [
+        int(out["valid"].sum())]
+    assert program.COUNTERS["geotr.hypotheses"].tolist() == [
+        int((out["hyp_counts"] >= 0).sum())]
+    print(f"embedding pairs {pairs} (capacity grid {8 * cap * cap}); "
+          f"correspondences {int(out['valid'].sum())}, hypotheses "
+          f"{int((out['hyp_counts'] >= 0).sum())}")
