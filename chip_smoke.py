@@ -70,11 +70,14 @@ non-zero without one, and without the checkout beside it).  Phases:
    the launch without extents, timed; a forward with the launch counts
    set to 0 just before it, the counts against
    `geotr_launches_per_forward` (ten searches, two K1 launches a cross
-   block, the backbone's, the decoder's and the four patch gathers, no
-   other kernel), every K6, K1 and K5a launch of it held to its plain
+   block, the backbone's, the decoder's and the four patch gathers, one
+   embedding, no other kernel), every K6, K1, K5a and embedding launch of
+   it held to its plain
    version as it happens, finite poses; K5a at the patch gathers' own
    tables and ids (level-1 features, 256 wide, and points, 3 wide)
-   bitwise index_select, timed;
+   bitwise index_select, timed; the geometric embedding's kernel (one
+   launch a forward, held to its plain version within TOL) timed on that
+   forward's inputs beside the module's stage and the plain version;
 6. training path: the shipped 3DMatch config (fp32) on 2 pairs of those
    scans with GT poses and overlap labels, collated at the bucket the
    config picks (24576): the gather transpose on the step's level-0 table
@@ -1180,7 +1183,8 @@ def geotr_launches_per_forward(model):
     level) table gathers its features and its neighbors' coordinates,
     later blocks the features), the decoder's two nearest upsamplings
     and the four patch gathers (level-1 features and points of both
-    sides of the chosen node pairs); no other kernel."""
+    sides of the chosen node pairs); the geometric embedding, one; no
+    other kernel."""
     seen, rows = set(), 0
     for block in model.backbone.children():
         if hasattr(block, "KPConv"):
@@ -1190,7 +1194,7 @@ def geotr_launches_per_forward(model):
     counts = dict.fromkeys(_counted(), 0)
     counts.update(neighbor_search=3 * model.spec.num_levels - 2,
                   flash_attn_fwd=2 * model.transformer.blocks.count("cross"),
-                  row_gather=rows + 2 + 4)
+                  row_gather=rows + 2 + 4, geo_embedding=1)
     return counts
 
 
@@ -1288,11 +1292,11 @@ def phase_geotransformer():
         patch.setdefault(table.shape[1], []).append((table, idx, same))
         return out
 
-    found = {}
+    found, keep = {}, {}
     _zero_launch_counts()
     program.row_gather = patch_rows
     try:
-        with held_to_plain(found):
+        with held_to_plain(found, keep):
             out = forward(points, mask)
             torch.cuda.synchronize()
     finally:
@@ -1314,7 +1318,49 @@ def phase_geotransformer():
     gathers = [_time_row_gather(table, idx, f"GeoTransformer patch rows, "
                                 f"{width} wide")
                for width, ((table, idx, _), *_) in sorted(patch.items())]
-    return {"k1": k1, "launches": launches, "gathers": gathers}
+    embedding = geotr_embedding_timing(model, keep["geo"])
+    return {"k1": k1, "launches": launches, "gathers": gathers,
+            "embedding": embedding}
+
+
+def geotr_embedding_timing(model, args):
+    """The embedding kernel on one forward's own inputs (`args` of its
+    launch, held to the plain version as it happened), by CUDA events:
+    single launches and back to back (10), the module's whole stage (the
+    angle neighbours' selection, then the kernel) and the plain version,
+    beside the 3xTF32 bound of the products over the key tiles computed
+    and over the valid pairs alone."""
+    import torch
+
+    from regtr_tpu_torch.ops import geo_embedding as geo
+
+    points, mask, knn, w_d = args[:4]
+    c, m, _ = points.shape
+    d = w_d.shape[0]
+    counts = mask.sum(1)
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: geo._kernel(*args))
+        b2b = cuda_ms(lambda: geo._kernel(*args), reps=10)
+        stage = cuda_ms(lambda: model.transformer.embedding(points, mask),
+                        reps=10)
+        plain = cuda_ms(lambda: geo.geo_embedding_reference(*args[:-1]),
+                        iters=10, warmup=2)
+    tile = geo.KEY_TILE
+    computed = int(((counts + tile - 1) // tile * tile).clamp(max=m).sum())
+    flop = 4 * 2 * d * d * m          # four codes' products, a key column
+    bound = computed * flop / PEAK_FLOPS["3xtf32"] * 1e3
+    bound_valid = int(counts.sum()) * flop / PEAK_FLOPS["3xtf32"] * 1e3
+    torch.cuda.synchronize()
+    log(f"  geometric embedding {(c, m, m, d)} fp32, valid "
+        f"{counts.tolist()}: kernel {ms:.4f} ms, b2b {b2b:.4f}; the stage "
+        f"(neighbours + kernel) b2b {stage:.4f}; plain {plain:.4f} ms; "
+        f"bound {bound:.4f} ms over the key tiles run, {bound_valid:.4f} "
+        f"over the valid pairs (3xTF32)")
+    return dict(what="GeoTransformer's embedding, one forward's inputs",
+                shape=[c, m, m, d], dtype="float32",
+                valid=counts.tolist(), ms=ms, back_to_back_ms=b2b,
+                stage_back_to_back_ms=stage, plain_ms=plain,
+                bound_ms=bound, bound_valid_ms=bound_valid)
 
 
 def phase_small_input():
@@ -1655,7 +1701,8 @@ def _counted():
     """Every kernel wrapper, by the name the kernels line gives it (taken
     once, so that a route that swaps a wrapper for its plain version still
     reads the wrappers' counts)."""
-    from regtr_tpu_torch.ops import attention, gather, kpconv, neighbors
+    from regtr_tpu_torch.ops import (attention, gather, geo_embedding,
+                                     kpconv, neighbors)
 
     if not _COUNTED:
         _COUNTED.update({
@@ -1666,7 +1713,8 @@ def _counted():
             "segment_transpose": kpconv.segment_transpose,
             "row_gather": gather.row_gather,
             "element_gather": gather.element_gather,
-            "neighbor_search": neighbors.brute_radius_neighbors})
+            "neighbor_search": neighbors.brute_radius_neighbors,
+            "geo_embedding": geo_embedding.geo_embedding})
     return _COUNTED
 
 
@@ -2550,13 +2598,15 @@ def held_to_plain(found, keep=None):
     wrapped where the pyramid calls it), the row gathers (the kernels' and
     the grid search's), the element gather (the scan and grid searches'
     merges) and the segment transpose bitwise, the segment sum within
-    TOL_SEGSUM of its largest |sum|.  found[(kernel, shape, dtype)]
-    = (launches, largest |difference|, all within).  keep, if given, gets
-    the element gather's inputs of the largest src under 'args' (for
-    timing)."""
+    TOL_SEGSUM of its largest |sum|, GeoTransformer's embedding within
+    TOL (fp32).  found[(kernel, shape, dtype)] = (launches, largest
+    |difference|, all within).  keep, if given, gets the element gather's
+    inputs of the largest src under 'args' and the embedding's latest
+    under 'geo' (for timing)."""
     import torch
 
-    from regtr_tpu_torch.ops import attention, kpconv, neighbors, pyramid
+    from regtr_tpu_torch.ops import (attention, geo_embedding, kpconv,
+                                     neighbors, pyramid)
     from regtr_tpu_torch.ops.gather import (element_gather_reference,
                                             row_gather_reference)
 
@@ -2572,7 +2622,8 @@ def held_to_plain(found, keep=None):
                 gather=kpconv.row_gather, transpose=kpconv.segment_transpose,
                 sum=kpconv.segment_sum, search_gather=neighbors.row_gather,
                 elements=neighbors.element_gather,
-                search=pyramid.radius_neighbors_batch)
+                search=pyramid.radius_neighbors_batch,
+                geo=geo_embedding._kernel)
 
     def search(queries, q_mask, supports, s_mask, radius, k, method,
                chunk, cell_cap):
@@ -2651,6 +2702,16 @@ def held_to_plain(found, keep=None):
              err <= TOL_SEGSUM * float(ref.abs().max()))
         return out
 
+    def geo(*args):
+        out = real["geo"](*args)
+        ref = geo_embedding.geo_embedding_reference(*args[:-1])
+        tol = TOL["float32"]
+        note("geo_embedding", out.shape, out.dtype, max_err(out, ref),
+             _excess(out, ref, tol) <= tol)
+        if keep is not None:
+            keep["geo"] = args
+        return out
+
     # kpconv's own kernels count their launches under their module names,
     # which the wrappers take meanwhile: fold those counts back on exit
     transpose.launches = segsum.launches = 0
@@ -2660,9 +2721,11 @@ def held_to_plain(found, keep=None):
     neighbors.row_gather = held_rows("search_gather")
     neighbors.element_gather = elements
     pyramid.radius_neighbors_batch = search
+    geo_embedding._kernel = geo
     try:
         yield
     finally:
+        geo_embedding._kernel = real["geo"]
         pyramid.radius_neighbors_batch = real["search"]
         attention._kernel_fwd, attention._bwd = real["fwd"], real["bwd"]
         kpconv.row_gather = real["gather"]
@@ -5242,6 +5305,10 @@ def main():
              per_search=searches["main"], modelnet_searches=searches[
                  "modelnet"], other_shapes=[searches["exact"]],
              adversarial=searches["adversarial"], bench=bench),
+        dict(name="geo_embedding", row="GeoTransformer", route="cuda",
+             source=src + "geo_embedding.cu", replaces=None,
+             geotr_launches_per_forward=geotr["launches"]["geo_embedding"],
+             **geotr["embedding"]),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -31,6 +31,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..core.masking import NEG_INF
+from ..ops.geo_embedding import geo_embedding, pair_offsets
 from ..ops.kpconv import closest_pool
 from .blocks import _conv_block, _kpconv_layer, leaky_relu
 from .matching import nearest_first
@@ -185,21 +186,13 @@ class KPConvFPN(nn.Module):
         return x4, torch.where(levels[1].mask[..., None], lat2, 0.0)
 
 
-def sinusoidal_embedding(x, d_model: int):
-    """Upstream's SinusoidalPositionalEmbedding: x (...) -> (..., d), sin
-    and cos interleaved, frequencies exp(-ln(1e4) 2m / d)."""
-    div = torch.exp(torch.arange(0, d_model, 2, dtype=torch.float32,
-                                 device=x.device)
-                    * (-math.log(10000.0) / d_model))
-    omegas = x[..., None] * div
-    return torch.stack([torch.sin(omegas), torch.cos(omegas)],
-                       dim=-1).reshape(x.shape + (d_model,))
-
-
 class GeometricStructureEmbedding(nn.Module):
     """r_ij = proj_d(emb(d_ij / sigma_d)) + max over the angle_k nearest
     other superpoints x of p_i of proj_a(emb(angle(p_x - p_i, p_j - p_i) *
-    180 / (sigma_a pi))).  points (C, M, 3), mask (C, M) -> (C, M, M, d)."""
+    180 / (sigma_a pi))).  points (C, M, 3), mask (C, M) -> (C, M, M, d),
+    zeros at padded keys.  The angle neighbours are chosen here (squared
+    distances to valid points, ties lowest index first); the rest is
+    ops/geo_embedding.py, a kernel on CUDA tensors."""
 
     def __init__(self, d_model, sigma_d, sigma_a, angle_k):
         super().__init__()
@@ -209,28 +202,16 @@ class GeometricStructureEmbedding(nn.Module):
         self.angle_k = angle_k
         self.proj_d = nn.Linear(d_model, d_model)
         self.proj_a = nn.Linear(d_model, d_model)
+        self._splits: dict = {}   # the kernel's split weights (ops)
 
     def forward(self, points, mask):
-        # p_j - p_i at [c, i, j], and its squared length elementwise, so
-        # that a reference that does the same picks the same neighbours
-        diff = points[:, None, :, :] - points[:, :, None, :]
-        dx, dy, dz = diff.unbind(-1)
-        sq = (dx * dx + dy * dy) + dz * dz
-        out = self.proj_d(sinusoidal_embedding(torch.sqrt(sq) / self.sigma_d,
-                                               self.d_model))
+        _, sq = pair_offsets(points)
         far = torch.where(mask[:, None, :], sq, float("inf"))
         knn = nearest_first(far, self.angle_k + 1)[1][..., 1:]
-        angle = None
-        for x in range(self.angle_k):
-            ref = diff.gather(2, knn[..., x, None, None].expand(
-                -1, -1, 1, 3))                                # (C, M, 1, 3)
-            sin = torch.linalg.norm(torch.cross(ref.expand_as(diff), diff,
-                                                dim=-1), dim=-1)
-            cos = (ref * diff).sum(-1)
-            emb = self.proj_a(sinusoidal_embedding(
-                torch.atan2(sin, cos) * self.factor_a, self.d_model))
-            angle = emb if angle is None else torch.maximum(angle, emb)
-        return out + angle
+        return geo_embedding(points, mask, knn, self.proj_d.weight,
+                             self.proj_d.bias, self.proj_a.weight,
+                             self.proj_a.bias, self.sigma_d, self.factor_a,
+                             self._splits)
 
 
 class FeedForward(nn.Module):

@@ -125,9 +125,10 @@ def build_all(libraries: Sequence[CudaLibrary]) -> None:
 
 
 def kernel_libraries() -> list:
-    """Every kernel library of the port: K1, K2/K3, K4, K5 and K6."""
-    from . import attention, gather, kpconv, neighbors
+    """Every kernel library of the port: K1, K2/K3, K4, K5, K6 and
+    GeoTransformer's geometric embedding."""
+    from . import attention, gather, geo_embedding, kpconv, neighbors
 
     return [attention.FWD_LIBRARY, attention.BWD_LIBRARY,
             kpconv.SEGSUM_LIBRARY, gather.GATHER_LIBRARY,
-            neighbors.NEIGHBORS_LIBRARY]
+            neighbors.NEIGHBORS_LIBRARY, geo_embedding.GEO_LIBRARY]

@@ -811,3 +811,148 @@ def test_geotransformer_counters_on_the_card(cuda):
     print(f"embedding pairs {pairs} (capacity grid {8 * cap * cap}); "
           f"correspondences {int(out['valid'].sum())}, hypotheses "
           f"{int((out['hyp_counts'] >= 0).sum())}")
+
+
+GEO_COUNTS = (512, 450, 377, 300, 1, 0, 450, 377)
+
+
+def _geo_embedding_case(device, m=512, counts=GEO_COUNTS, seed=2100):
+    """GeoTransformer's embedding at the cell's widths (geotr-3dmatch: d
+    256, 3 angle neighbours) on seeded weights (nn.Linear's uniform
+    range): len(counts) clouds of m superpoints in a 3 m cube, each valid
+    for a prefix of its count, the angle neighbours as the module picks
+    them.  -> (module, the kernel's arguments)."""
+    from portbench import manifest
+    from regtr_tpu_torch.nn.geotransformer import GeometricStructureEmbedding
+    from regtr_tpu_torch.nn.matching import nearest_first
+    from regtr_tpu_torch.ops import geo_embedding as geo
+
+    cfg = manifest.load_config("geotr-3dmatch")["config"]
+    emb = GeometricStructureEmbedding(cfg["geo_hidden_dim"],
+                                      cfg["geo_sigma_d"], cfg["geo_sigma_a"],
+                                      cfg["geo_angle_k"])
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in emb.parameters():
+            p.copy_((torch.rand(p.shape, generator=g) * 2 - 1)
+                    / emb.d_model ** 0.5)
+    emb = emb.to(device).requires_grad_(False)
+    points = (torch.rand(len(counts), m, 3, generator=g) * 3.0).to(device)
+    mask = (torch.arange(m)[None, :]
+            < torch.tensor(counts)[:, None]).to(device)
+    _, sq = geo.pair_offsets(points)
+    knn = nearest_first(torch.where(mask[:, None, :], sq, float("inf")),
+                        emb.angle_k + 1)[1][..., 1:]
+    return emb, (points, mask, knn, emb.proj_d.weight, emb.proj_d.bias,
+                 emb.proj_a.weight, emb.proj_a.bias, emb.sigma_d,
+                 emb.factor_a)
+
+
+def _float64_embedding(args):
+    """The plain version's own fp32 codes, projected, maxed and summed in
+    float64, a cloud at a time; zeros at padded keys."""
+    import torch.nn.functional as F
+
+    from regtr_tpu_torch.ops import geo_embedding as geo
+
+    points, mask, knn, w_d, b_d, w_a, b_a, sigma_d, factor_a = args
+    w_d, b_d, w_a, b_a = (t.double() for t in (w_d, b_d, w_a, b_a))
+    outs = []
+    for c in range(points.shape[0]):
+        codes = geo.embedding_codes(points[c:c + 1], knn[c:c + 1],
+                                    w_d.shape[0], sigma_d, factor_a)
+        out = F.linear(next(codes).double(), w_d, b_d)
+        out = out + torch.stack([F.linear(code.double(), w_a, b_a)
+                                 for code in codes]).amax(0)
+        outs.append(torch.where(mask[c:c + 1, None, :, None], out, 0.0))
+    return torch.cat(outs)
+
+
+def _b2b_ms(fn, reps=30):
+    fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+@pytest.mark.cuda
+def test_geo_embedding_kernel_at_the_cells_shape(cuda):
+    """The embedding kernel at (8, 512, 512, 256) with valid counts 512 to
+    0: within TOL of the plain version everywhere and zeros past each
+    count; its largest error against float64 (the same codes and weights)
+    at most twice the plain fp32 route's; two launches bitwise equal; one
+    launch a call, its key tiles counted under a profiler; the weights
+    split once per version.  Kernel and plain times, 30 back to back."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from regtr_tpu_torch.ops import geo_embedding as geo
+
+    emb, args = _geo_embedding_case(cuda)
+    mask = args[1]
+    cache = {}
+    before = geo.geo_embedding.launches
+    out = geo.geo_embedding(*args, cache=cache)
+    again = geo.geo_embedding(*args, cache=cache)
+    ref = geo.geo_embedding_reference(*args)
+    torch.cuda.synchronize()
+    assert geo.geo_embedding.launches == before + 2
+    assert out.shape == (8, 512, 512, 256) and out.dtype == torch.float32
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out, ref, atol=TOL["float32"],
+                               rtol=TOL["float32"])
+    for c, n in enumerate(GEO_COUNTS):
+        assert not bool(out[c, :, n:].any())
+    f64 = _float64_embedding(args)
+    err = float((out.double() - f64).abs().max())
+    plain_err = float((ref.double() - f64).abs().max())
+    print(f"largest error against float64: kernel {err:.3e}, plain fp32 "
+          f"{plain_err:.3e}")
+    assert err <= 2 * plain_err
+    del f64, again
+
+    geo.geo_embedding.tiles = None
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        geo.geo_embedding(*args, cache=cache)
+        torch.cuda.synchronize()
+    run, grid = geo.key_tile_counts(mask.sum(1), 512, 256)
+    tiles = geo.geo_embedding.tiles.tolist()
+    assert tiles == [int(run), grid] == [42 * 256 * 2, 8 * 8 * 256 * 2]
+    geo.geo_embedding.tiles = None
+
+    split = cache["d"][2]
+    geo.geo_embedding(*args, cache=cache)
+    assert cache["d"][2] is split
+    with torch.no_grad():
+        emb.proj_d.weight.mul_(1.0)              # a new version
+    geo.geo_embedding(*args, cache=cache)
+    assert cache["d"][2] is not split
+
+    kernel = _b2b_ms(lambda: geo.geo_embedding(*args, cache=cache))
+    plain = _b2b_ms(lambda: geo.geo_embedding_reference(*args))
+    print(f"geometric embedding (8, 512, 512, 256), valid {GEO_COUNTS} "
+          f"({tiles[0]} of {tiles[1]} key tiles): kernel {kernel:.3f} ms, "
+          f"plain {plain:.3f} ms a call (30 back to back)")
+
+
+@pytest.mark.cuda
+def test_geo_embedding_kernel_refuses_what_it_does_not_take(cuda):
+    from regtr_tpu_torch.ops import geo_embedding as geo
+
+    _, args = _geo_embedding_case(cuda, m=64, counts=(64, 30))
+    points, mask, knn, w_d, b_d, w_a, b_a, sigma_d, factor_a = args
+    narrow = (w_d[:192, :192].contiguous(), b_d[:192],
+              w_a[:192, :192].contiguous(), b_a[:192])
+    for bad in ((points, mask, knn[..., :2], w_d, b_d, w_a, b_a),
+                (points, mask, knn) + narrow,
+                (points.double(), mask, knn, w_d, b_d, w_a, b_a),
+                (points, mask.float(), knn, w_d, b_d, w_a, b_a),
+                (points, mask, knn, w_d.t(), b_d, w_a, b_a),
+                (points, mask, knn.cpu(), w_d, b_d, w_a, b_a),
+                (points, mask, knn, w_d.clone().requires_grad_(), b_d, w_a,
+                 b_a)):                                   # no backward
+        with pytest.raises(ValueError):
+            geo.geo_embedding(*bad, sigma_d, factor_a)

@@ -30,6 +30,7 @@ from regtr_tpu_torch.models import create_model
 from regtr_tpu_torch.models import geotransformer as program
 from regtr_tpu_torch.nn import geotransformer as geo_nn
 from regtr_tpu_torch.nn import matching
+from regtr_tpu_torch.ops import geo_embedding as geo_ops
 from regtr_tpu_torch.ops.kpconv import GatherIndex, kpconv_fused_gather
 from regtr_tpu_torch.train.steps import make_forward
 
@@ -153,7 +154,7 @@ def test_backbone_and_upsampling_decoder_match_stack_mode(setup):
 
 def test_sinusoidal_embedding_interleaves_sin_and_cos():
     x = torch.tensor([0.0, 0.7, 3.1])
-    emb = geo_nn.sinusoidal_embedding(x, 8)
+    emb = geo_ops.sinusoidal_embedding(x, 8)
     div = torch.exp(torch.arange(0, 8, 2).float() * (-torch.log(
         torch.tensor(1e4)) / 8))
     torch.testing.assert_close(emb[:, 0::2], torch.sin(x[:, None] * div))
@@ -192,6 +193,48 @@ def test_embedding_takes_the_max_over_the_angle_neighbours(setup):
                 a * emb.factor_a, emb.d)))
         torch.testing.assert_close(got[0], d + torch.stack(terms).amax(0),
                                    atol=TOL, rtol=TOL)
+
+
+def _padded_clouds(d, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(2, 10, d, generator=g)
+    pts = torch.rand(2, 10, 3, generator=g)
+    mask = torch.zeros(2, 10, dtype=torch.bool)
+    mask[0, :10], mask[1, :6] = True, True
+    return x, pts, mask
+
+
+@pytest.mark.parametrize("padded_keys", ["zeros", "large"])
+def test_self_blocks_do_not_read_the_embedding_at_padded_keys(setup,
+                                                              padded_keys):
+    """The embedding's entries at padded keys reach nothing: every self
+    block's output, at every row (padded ones too), is the same bit for bit
+    whether those entries hold the plain embedding's values, zeros (what
+    the embedding writes, kernel and plain version alike) or large finite
+    values."""
+    model = setup["model"]
+    x, pts, mask = _padded_clouds(setup["cfg"]["geo_hidden_dim"], 6)
+    emb = model.transformer.embedding
+    _, sq = geo_ops.pair_offsets(pts)
+    knn = matching.nearest_first(
+        torch.where(mask[:, None, :], sq, float("inf")), 4)[1][..., 1:]
+    args = (emb.proj_d.weight, emb.proj_d.bias, emb.proj_a.weight,
+            emb.proj_a.bias, emb.sigma_d, emb.factor_a)
+    with torch.no_grad():
+        unzeroed = geo_ops.geo_embedding_reference(
+            pts, torch.ones_like(mask), knn, *args)
+        got = emb(pts, mask)
+        keys = mask[:, None, :, None]
+        assert torch.equal(got, torch.where(keys, unzeroed, 0.0))
+        other = (got if padded_keys == "zeros"
+                 else torch.where(keys, unzeroed, 1e30))
+        selfs = [layer for b, layer in zip(model.transformer.blocks,
+                                           model.transformer.layers)
+                 if b == "self"]
+        assert selfs
+        for layer in selfs:
+            assert torch.equal(layer(x, other, mask),
+                               layer(x, unzeroed, mask))
 
 
 def test_rpe_self_attention_layer_matches_unpadded(setup):
@@ -449,7 +492,7 @@ def test_chip_smokes_launch_count_is_the_forwards_calls(setup, monkeypatch):
     from regtr_tpu_torch.ops import kpconv, pyramid
 
     calls = dict.fromkeys(("neighbor_search", "flash_attn_fwd",
-                           "row_gather"), 0)
+                           "row_gather", "geo_embedding"), 0)
 
     def counted(module, name, kernel):
         real = getattr(module, name)
@@ -463,12 +506,63 @@ def test_chip_smokes_launch_count_is_the_forwards_calls(setup, monkeypatch):
     counted(transformer, "flash_masked_attention", "flash_attn_fwd")
     counted(kpconv, "row_gather", "row_gather")
     counted(program, "row_gather", "row_gather")
+    counted(geo_nn, "geo_embedding", "geo_embedding")
     make_forward(setup["model"])(setup["pts"], setup["mask"])
     want = chip_smoke.geotr_launches_per_forward(setup["model"])
     assert calls == {k: want[k] for k in calls}
     assert calls == {"neighbor_search": 10, "flash_attn_fwd": 6,
-                     "row_gather": 24}
+                     "row_gather": 24, "geo_embedding": 1}
     assert sum(want.values()) == sum(calls.values())
+
+
+def test_embedding_kernels_weights_are_its_b_fragments():
+    """split_weight: entry [h, q, p, s, r, e, i, kk] is part p (TF32 big,
+    then small) of W[n, k] for n = 128 h + 8 r + i and k = 64 q + 8 s + 2 kk
+    + e; big + small is W to TF32's second rounding."""
+    d = 256
+    w = torch.randn(d, d, generator=torch.Generator().manual_seed(8))
+    parts = geo_ops.split_weight(w)
+    assert parts.shape == (2, 4, 2, 8, 16, 2, 8, 4) and parts.is_contiguous()
+    bits = parts.view(torch.int32)
+    assert bool(((bits & 0x1FFF) == 0).all())          # TF32: 13 bits 0
+    for h, q, s, r, e, i, kk in ((0, 0, 0, 0, 0, 0, 0), (1, 3, 7, 15, 1, 7, 3),
+                                 (1, 2, 5, 5, 0, 3, 2), (0, 1, 2, 9, 1, 6, 1)):
+        n, k = 128 * h + 8 * r + i, 64 * q + 8 * s + 2 * kk + e
+        big = float(parts[h, q, 0, s, r, e, i, kk])
+        small = float(parts[h, q, 1, s, r, e, i, kk])
+        assert big == float(geo_ops._tf32(w[n, k]))
+        assert abs(big + small - float(w[n, k])) <= 2 ** -21 * abs(
+            float(w[n, k]))
+
+
+def test_embedding_tile_counts_and_what_the_kernel_refuses():
+    """The kernel's key tiles at the card test's valid counts; the checks
+    that refuse what it was not built for (they run before any launch);
+    a device that is neither the CPU nor a card raises."""
+    counts = torch.tensor([512, 450, 377, 300, 1, 0, 450, 377])
+    run, grid = geo_ops.key_tile_counts(counts, 512, 256)
+    assert int(run) == (8 + 8 + 6 + 5 + 1 + 0 + 8 + 6) * 256 * 2
+    assert grid == 8 * 8 * 256 * 2
+    pts = torch.rand(2, 9, 3)
+    mask = torch.ones(2, 9, dtype=torch.bool)
+    knn = torch.zeros(2, 9, 3, dtype=torch.long)
+    w, b = torch.zeros(256, 256), torch.zeros(256)
+    geo_ops._check(pts, mask, knn, w, b, w, b)
+    bad = [(pts, mask, knn[..., :2], w, b, w, b),          # angle_k 2
+           (pts, mask, knn, w[:192, :192], b[:192], w[:192, :192],
+            b[:192]),                                      # d 192
+           (pts.double(), mask, knn, w, b, w, b),
+           (pts, mask.float(), knn, w, b, w, b),
+           (pts, mask, knn.float(), w, b, w, b),
+           (pts, mask, knn, w.t(), b, w, b),               # not contiguous
+           (torch.rand(40000, 4, 3), torch.ones(40000, 4, dtype=torch.bool),
+            torch.zeros(40000, 4, 3, dtype=torch.long), w, b, w, b)]
+    for args in bad:
+        with pytest.raises(ValueError):
+            geo_ops._check(*args)
+    with pytest.raises(ValueError):
+        geo_ops.geo_embedding(pts.to("meta"), mask.to("meta"),
+                              knn.to("meta"), w, b, w, b, 0.2, 3.8)
 
 
 # ------------------------------------------------ spans, counters, init ---
